@@ -1,0 +1,73 @@
+"""The CUDA NTT kernels against their plain PyTorch versions, on the card.
+
+Needs an NVIDIA GPU and ``nvcc``; skips elsewhere.  Run on the GPU machine:
+
+    python -m pytest tests/test_torch_cuda.py -q -m cuda -p no:cacheprovider
+
+(`chip_smoke.py` makes the same comparisons, at more shapes.)"""
+
+import pytest
+import torch
+
+from reference_seal_backend_tpu_torch.nums import primegen
+from reference_seal_backend_tpu_torch.ops import modops as tmod
+from reference_seal_backend_tpu_torch.ops import ntt as tntt
+from reference_seal_backend_tpu_torch.ops.cuda import ntt as ntt_cuda
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: a CUDA kernel has no interpret mode")
+    return torch.device("cuda", 0)
+
+
+def _data(plan, lead, lo, nl, mult, device):
+    gen = torch.Generator(device=device).manual_seed(3)
+    cols = [
+        torch.randint(0, mult * p, (*lead, plan.n), generator=gen,
+                      dtype=torch.int64, device=device)
+        for p in plan.primes[lo : lo + nl]
+    ]
+    return tmod.narrow(torch.stack(cols, dim=-2))
+
+
+@pytest.mark.parametrize("n", [64, 2048, 8192, 16384, 32768])
+@pytest.mark.parametrize("bits", [30, 31], ids=["lazy", "nonlazy"])
+def test_kernels_equal_plain_versions(card, n, bits):
+    primes = tuple(primegen.gen_ntt_primes(3, bits, 2 * n))
+    plan = tntt.make_plan(n, primes, card)
+    for lead, lo, nl, mult in (((5,), 0, 3, 1), ((1,), 2, 1, 1), ((3, 2), 1, 2, 2)):
+        if mult == 2 and not plan.lazy:
+            continue
+        x = _data(plan, lead, lo, nl, mult, card)
+        before = dict(ntt_cuda.launches)
+        for epi in (True, False):
+            assert torch.equal(plan.fwd(x, lo, epi), plan.fwd_plain(x, lo, epi))
+        assert torch.equal(plan.inv(x, lo), plan.inv_plain(x, lo))
+        assert ntt_cuda.launches["ntt_fwd"] == before["ntt_fwd"] + 2
+        assert ntt_cuda.launches["ntt_inv"] == before["ntt_inv"] + 1
+        if mult == 1:
+            assert torch.equal(plan.inv(plan.fwd(x, lo), lo), x)
+    torch.cuda.synchronize()
+
+
+def test_non_contiguous_slice_is_made_contiguous_by_the_plan(card):
+    primes = tuple(primegen.gen_ntt_primes(3, 30, 2 * 1024))
+    plan = tntt.make_plan(1024, primes, card)
+    x = _data(plan, (4,), 0, 3, 1, card)
+    part = x[..., 1:, :]
+    assert not part.is_contiguous()
+    assert torch.equal(plan.fwd(part, lo=1), plan.fwd_plain(part, lo=1))
+    with pytest.raises(ValueError, match="contiguous"):
+        ntt_cuda.ntt_fwd(part, plan.roots, plan.roots_shoup, plan.p, 1, True, True)
+
+
+def test_runner_on_the_card(card):
+    from reference_seal_backend_tpu_torch.engine.runner import run_all
+
+    res = run_all(["ckks_dot_product_latency"], device="cuda", verbose=False,
+                  params={"poly_modulus_degree": 2048, "sec_level": 0})
+    assert res[0].passed and res[0].ntt_launches_per_operate > 0
