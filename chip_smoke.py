@@ -9,11 +9,17 @@ result line, when there is no card or when the port's package is missing.
 Phases (each prints one JSON line; any failure ends the run non-zero):
 
 1. ``device``      torch / CUDA versions, the card's name and power limit.
-2. ``build``       builds the CUDA kernels from the sources in the package.
+2. ``build``       builds the CUDA kernels from the source in the package.
 3. ``kernel_checks`` ``ntt_fwd`` / ``ntt_inv`` against their plain PyTorch
    versions on the card (integers: tolerance 0) at N = 8192 with the
    registered context's primes, at N = 16384 and 32768, at the shapes the
-   main path gives them, and timed with CUDA events at ``[64, 7, 8192]``.
+   main path gives them, on strided limb-slice views as the evaluator passes
+   them, at every size the kernels are specialised for and at N = 1024 (the
+   generic kernels), lazy and non-lazy.
+   ``kernel_times`` (run after ``main_path``) both kernels timed at
+   ``[64, 7, 8192]``, at the one-wave shapes of a 1 x 1 dot product and at
+   the shapes a depth-6 context gives them at N = 16384 and 32768, each
+   beside its bound; the plain versions at ``[64, 7, 8192]``.
 4. ``main_path``   the port's harness runner on the six CKKS descriptors at
    their registered parameters (N = 8192, depth 2, 128-bit security
    enforced), seed 1234, 8 x 8 sample pairs for the Offline ones; requires
@@ -42,11 +48,24 @@ SIX = (
     "ckks_dot_product_offline",
 )
 TIMED_SHAPE = (64, 7, 8192)
+BIG_LIMBS = 14
+L2_BYTES = 50e6
 # H100 SXM peaks: 3.35 TB/s of device memory; int32 issue = 132 SMs x 64
 # lanes x 1.98 GHz (half the float32 lane count behind the 67 TFLOP/s figure)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_INT32_OPS_PER_S = 132 * 64 * 1.98e9
-OPS_PER_BUTTERFLY = 10  # lazy Harvey butterfly: 3 multiplies + 7 add/cmp/select
+# The least integer instructions the lazy arithmetic needs.  A butterfly:
+# high product, low product and multiply-add of the Shoup multiply, subtract
+# and minimum of the conditional subtraction, one add, one three-input add.
+# The forward transform's first stage takes u as it comes (no conditional
+# subtraction).  Per output element: two conditional subtractions forward,
+# a Shoup multiply and one conditional subtraction inverse.
+OPS_PER_BUTTERFLY = 7
+OPS_FIRST_FWD_BUTTERFLY = 5
+OPS_PER_OUTPUT = {"ntt_fwd": 4, "ntt_inv": 5}
+# what this script counted before it counted instructions: 10 per butterfly,
+# 6 per output; kept so that earlier records compare
+OPS_PER_BUTTERFLY_BEFORE, OPS_PER_OUTPUT_BEFORE = 10, 6
 
 
 def emit(obj) -> None:
@@ -58,41 +77,42 @@ def fail(msg: str) -> None:
     raise SystemExit(1)
 
 
-def random_residues(gen, primes, lead, lo, nl, n, bound_mult, device):
-    """uint32 residues below ``bound_mult * p`` per limb, as storage tensor."""
-    from reference_seal_backend_tpu_torch.ops import modops
-
-    cols = []
-    for p in primes[lo : lo + nl]:
-        cols.append(
-            torch.randint(
-                0, bound_mult * p, (*lead, n), generator=gen,
-                dtype=torch.int64, device=device,
-            )
-        )
-    return modops.narrow(torch.stack(cols, dim=-2))
-
-
 def check_plan(plan, gen, cases, device):
-    """Hold both kernels against the plain versions on the card."""
+    """Hold both kernels against the plain versions on the card.  A case is
+    ``(lead, lo, nl)`` for a contiguous input or ``(lead, lo, nl, total,
+    start)`` for the limb slice ``[start, start + nl)`` of a contiguous
+    ``[*lead, total, N]`` tensor, handed to the kernel as that view."""
+    from reference_seal_backend_tpu_torch.utils.kernel_bench import random_residues
+
     worst = {"ntt_fwd": 0, "ntt_inv": 0}
     n_checked = 0
-    for lead, lo, nl in cases:
+    for lead, lo, nl, *view in cases:
         for bound_mult in (1, 2):  # canonical and lazy [0, 2p) inputs
             if bound_mult == 2 and not plan.lazy:
                 continue
-            x = random_residues(
+            dense = random_residues(
                 gen, plan.primes, lead, lo, nl, plan.n, bound_mult, device
             )
+            x = dense
+            if view:
+                total, start = view
+                whole = torch.zeros((*lead, total, plan.n), dtype=dense.dtype,
+                                    device=device)
+                whole[..., start : start + nl, :] = dense
+                x = whole[..., start : start + nl, :]
+                if x.data_ptr() != whole.data_ptr() + 4 * start * plan.n:
+                    fail("limb slice is not a view")
             for epilogue in (True, False):
                 got = plan.fwd(x, lo=lo, epilogue=epilogue)
-                want = plan.fwd_plain(x, lo=lo, epilogue=epilogue)
+                want = plan.fwd_plain(dense, lo=lo, epilogue=epilogue)
                 torch.cuda.synchronize()
+                if not got.is_contiguous():
+                    fail("ntt_fwd returned a non-contiguous tensor")
                 err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
                 worst["ntt_fwd"] = max(worst["ntt_fwd"], err)
                 n_checked += 1
             got = plan.inv(x, lo=lo)
-            want = plan.inv_plain(x, lo=lo)
+            want = plan.inv_plain(dense, lo=lo)
             torch.cuda.synchronize()
             err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
             worst["ntt_inv"] = max(worst["ntt_inv"], err)
@@ -100,25 +120,70 @@ def check_plan(plan, gen, cases, device):
             if bound_mult == 1:
                 back = plan.inv(plan.fwd(x, lo=lo), lo=lo)
                 torch.cuda.synchronize()
-                if not torch.equal(back, x):
+                if not torch.equal(back, dense):
                     fail(f"inv(fwd(x)) != x at N={plan.n} lead={lead} lo={lo}")
     return worst, n_checked
 
 
-def time_ms(fn, inputs, reps):
-    """Mean milliseconds per call over ``reps`` calls, by CUDA events; the
-    calls walk over ``inputs`` so that no call finds its input in L2."""
-    for x in inputs:
-        fn(x)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for i in range(reps):
-        fn(inputs[i % len(inputs)])
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+def bound_of(name, polys, nl, n):
+    """Least milliseconds the card could take for ``polys`` transforms
+    (``name``: ``ntt_fwd`` or ``ntt_inv``) of ``n`` points over ``nl``
+    distinct limbs."""
+    log_n = int(math.log2(n))
+    # each input read once, each output written once: data in and out, the
+    # two twiddle tables, the per-limb constants
+    n_bytes = 2 * polys * n * 4 + 2 * nl * n * 4 + 3 * nl * 4
+    per_poly = n // 2 * log_n * OPS_PER_BUTTERFLY + OPS_PER_OUTPUT[name] * n
+    if name == "ntt_fwd":
+        per_poly -= n // 2 * (OPS_PER_BUTTERFLY - OPS_FIRST_FWD_BUTTERFLY)
+    before = n // 2 * log_n * OPS_PER_BUTTERFLY_BEFORE + OPS_PER_OUTPUT_BEFORE * n
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = polys * per_poly / PEAK_INT32_OPS_PER_S * 1e3
+    return {
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes_ms": t_bytes,
+        "operations_ms": t_ops,
+        "bound_ms_at_10_ops": max(
+            t_bytes, polys * before / PEAK_INT32_OPS_PER_S * 1e3),
+    }
+
+
+def time_shape(plan, gen, lead, lo, nl, device, with_host_loop=False):
+    """Both kernels' device time (a CUDA graph's replay) at ``[*lead, nl, N]``,
+    limbs from ``lo``, each beside its bound.  The inputs rotate over buffers
+    that together exceed the L2 (up to 400 of them; ``l2_cold`` says whether
+    they do).  ``with_host_loop``: also the plain versions, and the kernels
+    once more as the plain versions must be timed, the host launching every
+    call (``eager_ms``: the host's pace where the kernel is shorter)."""
+    from reference_seal_backend_tpu_torch.utils.kernel_bench import (
+        random_residues,
+        time_eager_ms,
+        time_graph_ms,
+    )
+
+    n = plan.n
+    polys = nl * math.prod(lead)
+    n_bufs = max(2, min(400, math.ceil(1.2 * L2_BYTES / (polys * n * 4))))
+    inputs = list(random_residues(
+        gen, plan.primes, (n_bufs, *lead), lo, nl, n, 1, device).unbind(0))
+    reps = max(50, n_bufs)
+    calls = {
+        "ntt_fwd": (lambda x: plan.fwd(x, lo=lo), lambda x: plan.fwd_plain(x, lo=lo)),
+        "ntt_inv": (lambda x: plan.inv(x, lo=lo), lambda x: plan.inv_plain(x, lo=lo)),
+    }
+    row = {
+        "shape": [*lead, nl, n], "lo": lo, "polys": polys,
+        "blocks_per_sm": polys / 132,
+        "l2_cold": n_bufs * polys * n * 4 >= L2_BYTES,
+    }
+    for name, (kernel, plain) in calls.items():
+        row[name] = {"ms": time_graph_ms(kernel, inputs, reps),
+                     **bound_of(name, polys, nl, n)}
+        if with_host_loop:
+            row[name]["eager_ms"] = time_eager_ms(kernel, inputs, 50)
+            row[name]["plain_ms"] = time_eager_ms(plain, inputs[:5], 5)
+    return row
 
 
 def phase_kernels(device):
@@ -126,6 +191,7 @@ def phase_kernels(device):
     from reference_seal_backend_tpu_torch.ops import ntt as ntt_mod
     from reference_seal_backend_tpu_torch.schemes.params import make_ckks_context
 
+    t0 = time.perf_counter()
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
     ctx = make_ckks_context(8192, mult_depth=2, sec_level=128, device=device)
@@ -142,9 +208,20 @@ def phase_kernels(device):
         ((8, 8, 2), sp, 1), ((8, 8, 2), 0, L - 2),
     ]
     edge_shapes = [((1,), 0, 7), ((37,), 0, 7), ((37,), sp, 1), ((), 2, 3)]
+    # limb slices as the evaluator hands them over, uncopied: the special row
+    # of a [.., l + 1, N] key-switch result (mod-down), the lifted digits'
+    # data rows and special row (hoisting), the top row of a ciphertext
+    # (rescale), each at 1 x 1 and 8 x 8
+    slice_shapes = []
+    for b in ((1, 1), (8, 8)):
+        slice_shapes += [
+            ((*b, 2), sp, 1, L + 1, L), ((*b, 2), sp, 1, L, L - 1),
+            ((*b, L), 0, L, L + 1, 0), ((*b, L), sp, 1, L + 1, L),
+            ((*b, 2), L - 1, 1, L, L - 1), ((*b, 2), L - 2, 1, L - 1, L - 2),
+        ]
     worst = {"ntt_fwd": 0, "ntt_inv": 0}
     checked = 0
-    plans = [(ctx.plan, main_shapes + edge_shapes)]
+    plans = [(ctx.plan, main_shapes + edge_shapes + slice_shapes)]
     for n in (16384, 32768):  # above 48 KB of shared memory: the opt-in
         primes = tuple(primegen.gen_ntt_primes(3, 30, 2 * n))
         plans.append(
@@ -157,6 +234,15 @@ def phase_kernels(device):
     if plan31.lazy:
         fail("expected a non-lazy plan for 31-bit primes")
     plans.append((plan31, [((3,), 0, 2), ((3,), 1, 1)]))
+    # every size with kernels of its own, and N = 1024 for the generic ones,
+    # lazy and not, dense and as limb slices
+    for n in (1024, 2048, 4096, 8192, 16384, 32768):
+        for bits in (30, 31):
+            primes = tuple(primegen.gen_ntt_primes(3, bits, 2 * n))
+            plans.append(
+                (ntt_mod.make_plan(n, primes, device),
+                 [((3,), 0, 3), ((5,), 2, 1, 3, 2), ((2, 3), 1, 2, 3, 1)])
+            )
     for plan, cases in plans:
         w, c = check_plan(plan, gen, cases, device)
         checked += c
@@ -165,45 +251,40 @@ def phase_kernels(device):
     if any(worst.values()):
         fail(f"kernel disagrees with its plain version: max_abs_err={worst}")
 
-    # timing at [64, 7, 8192]: 5 input sets of 14.7 MB (+ as much output
-    # each) exceed the 50 MB L2
-    b, nl, n = TIMED_SHAPE
-    inputs = [
-        random_residues(gen, ctx.primes, (b,), 0, nl, n, 1, device)
-        for _ in range(5)
-    ]
-    plan = ctx.plan
-    times = {
-        "ntt_fwd": (
-            time_ms(lambda x: plan.fwd(x), inputs, 50),
-            time_ms(lambda x: plan.fwd_plain(x), inputs, 5),
-        ),
-        "ntt_inv": (
-            time_ms(lambda x: plan.inv(x), inputs, 50),
-            time_ms(lambda x: plan.inv_plain(x), inputs, 5),
-        ),
-    }
-    rows = b * nl
-    log_n = int(math.log2(n))
-    # each input read once, each output written once: data in and out, the
-    # two twiddle tables, the per-limb constants
-    n_bytes = 2 * rows * n * 4 + 2 * nl * n * 4 + 3 * nl * 4
-    # butterflies plus the per-element epilogue (2 compare-subtracts forward,
-    # one Shoup multiply inverse: about 6 operations per element either way)
-    n_ops = rows * (n // 2 * log_n * OPS_PER_BUTTERFLY + 6 * n)
-    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_INT32_OPS_PER_S * 1e3
-    bound = {
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "bytes_ms": t_bytes,
-        "operations_ms": t_ops,
-    }
     emit({"phase": "kernel_checks", "comparisons": checked,
-          "max_abs_err": worst, "tolerance": 0, "timed_shape": TIMED_SHAPE,
-          "times_ms": {k: {"kernel": v[0], "plain": v[1]} for k, v in times.items()},
-          **bound})
-    return worst, times, bound
+          "max_abs_err": worst, "tolerance": 0,
+          "seconds": time.perf_counter() - t0})
+    return worst
+
+
+def phase_kernel_times(device):
+    """``kernel_times``: both kernels at the shapes that matter, with the
+    bound of each.  Returns the row at ``TIMED_SHAPE``."""
+    from reference_seal_backend_tpu_torch.nums import primegen
+    from reference_seal_backend_tpu_torch.ops import ntt as ntt_mod
+    from reference_seal_backend_tpu_torch.schemes.params import make_ckks_context
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 1)
+    ctx = make_ckks_context(8192, mult_depth=2, sec_level=128, device=device)
+    L, sp = ctx.L, ctx.sp_row
+    b, nl, n = TIMED_SHAPE
+    rows = [time_shape(ctx.plan, gen, (b,), 0, nl, device, with_host_loop=True)]
+    # one wave or less: what a 1 x 1 dot product launches
+    for lead, lo, k in (((1, 1), 0, L), ((1, 1, L), 0, L), ((1, 1, L), sp, 1)):
+        rows.append(time_shape(ctx.plan, gen, lead, lo, k, device))
+    # what logistic regression will launch: its depth-6, 128-bit context
+    # (make_ckks_context(N, mult_depth=6, scale_bits=50)) has 14 data limbs at
+    # either size, all below 2^30; 6 stands for a level late in the circuit
+    for n_big in (16384, 32768):
+        primes = tuple(primegen.gen_ntt_primes(BIG_LIMBS, 30, 2 * n_big))
+        plan = ntt_mod.make_plan(n_big, primes, device)
+        for k in (6, BIG_LIMBS):
+            rows.append(time_shape(plan, gen, (8,), 0, k, device))
+    emit({"phase": "kernel_times", "method": "CUDA graph replay, CUDA events",
+          "seconds": time.perf_counter() - t0, "rows": rows})
+    return rows[0]
 
 
 def phase_main_path(device):
@@ -270,10 +351,11 @@ def main() -> int:
 
     seconds = ntt_cuda.build()
     emit({"phase": "build", "sources": ["reference_seal_backend_tpu_torch/csrc/ntt.cu"],
-          "seconds": seconds})
+          "specialised_log_n": list(ntt_cuda.KERNEL_LOG_NS), "seconds": seconds})
 
-    worst, times, bound = phase_kernels(device)
+    worst = phase_kernels(device)
     launches = phase_main_path(device)
+    timed = phase_kernel_times(device)
 
     replaces = {
         "ntt_fwd": "reference_seal_backend_tpu/ops/pallas/ntt_kernel.py:186",
@@ -287,12 +369,14 @@ def main() -> int:
             "replaces": replaces[name],
             "launches": launches[name],
             "max_abs_err": worst[name],
-            "ms": times[name][0],
-            "plain_ms": times[name][1],
-            "bound_ms": bound["bound_ms"],
-            "bound_by": bound["bound_by"],
+            "ms": timed[name]["ms"],
+            "plain_ms": timed[name]["plain_ms"],
+            "bound_ms": timed[name]["bound_ms"],
+            "bound_by": timed[name]["bound_by"],
             "library_ms": None,  # no single PyTorch call computes an NTT mod p
             "shape": list(TIMED_SHAPE),
+            "eager_ms": timed[name]["eager_ms"],
+            "bound_ms_at_10_ops": timed[name]["bound_ms_at_10_ops"],
         }
         for name in ("ntt_fwd", "ntt_inv")
     ]})

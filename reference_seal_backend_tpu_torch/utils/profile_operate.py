@@ -61,7 +61,7 @@ def profile_one(engine: Engine, name: str) -> dict:
             kernels.append((ev.key, dev_us / 1e3, ev.count))
     kernels.sort(key=lambda k: -k[1])
     busy = sum(k[1] for k in kernels)
-    ntt = [k for k in kernels if "ntt_fwd_kernel" in k[0] or "ntt_inv_kernel" in k[0]]
+    ntt = [k for k in kernels if "ntt_fwd_" in k[0] or "ntt_inv_" in k[0]]
     return {
         "benchmark": name,
         "batch": [b, b],

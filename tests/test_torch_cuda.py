@@ -54,15 +54,54 @@ def test_kernels_equal_plain_versions(card, n, bits):
     torch.cuda.synchronize()
 
 
-def test_non_contiguous_slice_is_made_contiguous_by_the_plan(card):
+@pytest.mark.parametrize("n", [1024, 8192], ids=["generic", "specialised"])
+@pytest.mark.parametrize("start,nl", [(1, 2), (2, 1), (0, 2)])
+def test_limb_slice_view_goes_in_without_a_copy(card, n, start, nl):
+    """A limb slice of a contiguous tensor is handed to the kernel as the
+    view it is (same storage, one launch, no other kernel) and the result
+    equals the plain version's on the slice's copy."""
+    primes = tuple(primegen.gen_ntt_primes(3, 30, 2 * n))
+    plan = tntt.make_plan(n, primes, card)
+    whole = _data(plan, (4, 2), 0, 3, 1, card)
+    part = whole[..., start : start + nl, :]
+    assert not part.is_contiguous()
+    assert part.data_ptr() == whole.data_ptr() + 4 * start * n
+    assert ntt_cuda._row_layout(part, n) == (8, 3 * n)
+    dense = part.contiguous()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    before = dict(ntt_cuda.launches)
+    with torch.profiler.profile(activities=acts) as prof:
+        got_f = plan.fwd(part, lo=start)
+        got_i = plan.inv(part, lo=start)
+        torch.cuda.synchronize()
+    assert ntt_cuda.launches["ntt_fwd"] == before["ntt_fwd"] + 1
+    assert ntt_cuda.launches["ntt_inv"] == before["ntt_inv"] + 1
+    kernels = [e.key for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert kernels and all("ntt_" in k for k in kernels), kernels
+    assert got_f.is_contiguous() and got_i.is_contiguous()
+    assert torch.equal(got_f, plan.fwd_plain(dense, lo=start))
+    assert torch.equal(got_i, plan.inv_plain(dense, lo=start))
+
+
+@pytest.mark.parametrize(
+    "view",
+    [lambda y: y[:, :2, :2], lambda y: y[..., ::2, :],
+     lambda y: y.transpose(0, 1)[..., :2, :]],
+    ids=["row_gap", "limb_gap", "transposed_rows"],
+)
+def test_view_the_kernel_does_not_take_raises(card, view):
     primes = tuple(primegen.gen_ntt_primes(3, 30, 2 * 1024))
     plan = tntt.make_plan(1024, primes, card)
-    x = _data(plan, (4,), 0, 3, 1, card)
-    part = x[..., 1:, :]
-    assert not part.is_contiguous()
-    assert torch.equal(plan.fwd(part, lo=1), plan.fwd_plain(part, lo=1))
-    with pytest.raises(ValueError, match="contiguous"):
-        ntt_cuda.ntt_fwd(part, plan.roots, plan.roots_shoup, plan.p, 1, True, True)
+    x = view(_data(plan, (4, 3), 0, 3, 1, card))
+    assert x.shape[-2] == 2
+    before = dict(ntt_cuda.launches)
+    with pytest.raises(ValueError, match="CUDA NTT kernel takes"):
+        plan.fwd(x, lo=0)
+    with pytest.raises(ValueError, match="CUDA NTT kernel takes"):
+        plan.inv(x, lo=0)
+    assert ntt_cuda.launches == before
 
 
 def test_runner_on_the_card(card):
