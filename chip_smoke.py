@@ -12,18 +12,30 @@ Phases (each prints one JSON line; any failure ends the run non-zero):
 2. ``build``       builds the CUDA kernels from the source in the package.
 3. ``kernel_checks`` ``ntt_fwd`` / ``ntt_inv`` against their plain PyTorch
    versions on the card (integers: tolerance 0) at N = 8192 with the
-   registered context's primes, at N = 16384 and 32768, at the shapes the
-   main path gives them, on strided limb-slice views as the evaluator passes
+   registered context's primes, at N = 16384 and 32768, at the shapes a dot
+   product gives them, on strided limb-slice views as the evaluator passes
    them, at every size the kernels are specialised for and at N = 1024 (the
    generic kernels), lazy and non-lazy.
-   ``kernel_times`` (run after ``main_path``) both kernels timed at
-   ``[64, 7, 8192]``, at the one-wave shapes of a 1 x 1 dot product and at
-   the shapes a depth-6 context gives them at N = 16384 and 32768, each
-   beside its bound; the plain versions at ``[64, 7, 8192]``.
-4. ``main_path``   the port's harness runner on the six CKKS descriptors at
-   their registered parameters (N = 8192, depth 2, 128-bit security
-   enforced), seed 1234, 8 x 8 sample pairs for the Offline ones; requires
-   ``Failed: 0`` and NTT kernel launches in every dot-product ``operate``.
+   ``path_views`` (run after ``main_path``) both kernels against their plain
+   versions once more, on every distinct view (plan, shape, strides,
+   alignment, first limb, epilogue) that the main path handed them: the
+   views are noted while the main path runs, not listed by hand.
+   ``kernel_times`` (run last) both kernels timed at
+   ``[64, 7, 8192]``, at the one-wave shapes of a 1 x 1 dot product, with the
+   logistic-regression context's plan at N = 16384 and with a 14-limb plan at
+   N = 32768, each beside its bound; the plain versions at ``[64, 7, 8192]``.
+4. ``main_path``   the port's harness runner on the eleven CKKS descriptors at
+   their registered parameters, 128-bit security enforced, seed 1234:
+   element-wise and dot product at N = 8192, depth 2, 8 x 8 sample pairs for
+   the Offline ones; the three matrix-multiply packings at N = 8192,
+   10 x 9 x 8; logistic regression at N = 16384, depth 6, scale 50, 16
+   features, Latency and Offline at a batch of 100.  Requires ``Failed: 0``
+   and NTT kernel launches, as many in every iteration, in every ``operate``
+   that switches keys.  Per descriptor: ``operate_ms``, results per second,
+   launches, set-up seconds, peak device memory, and the chunking of the
+   logistic-regression dots stage.  (Where the device time of one
+   ``operate`` goes, launch by launch, is read by
+   ``reference_seal_backend_tpu_torch/utils/profile_operate.py``.)
 5. the ``kernels`` line (launch counts are those of the main-path run), the
    card's name and power limit, and the result line.
 """
@@ -47,6 +59,17 @@ SIX = (
     "ckks_eltwise_mult_offline",
     "ckks_dot_product_offline",
 )
+LOGREG = (
+    "ckks_logistic_regression_poly_d3_latency",
+    "ckks_logistic_regression_poly_d3_offline",
+)
+MATMULT = (
+    "ckks_matrix_multiply_latency",
+    "ckks_matrix_multiply_cipherbatchaxis_latency",
+    "ckks_matrix_multiply_row_latency",
+)
+ELEVEN = SIX + MATMULT + LOGREG
+LOGREG_BATCH = 100  # the batch behind the flexible Offline registration
 TIMED_SHAPE = (64, 7, 8192)
 BIG_LIMBS = 14
 L2_BYTES = 50e6
@@ -125,6 +148,60 @@ def check_plan(plan, gen, cases, device):
     return worst, n_checked
 
 
+def phase_path_views(log, device):
+    """Hold both kernels against their plain versions on every view the main
+    path handed them.  ``log`` is ``ops.ntt.call_log`` as that run filled it.
+    A view is rebuilt with its shape and strides; of its storage offset only
+    the alignment is kept, which is all of it that the kernel can see."""
+    from reference_seal_backend_tpu_torch.utils.kernel_bench import random_residues
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 2)
+    worst = {"ntt_fwd": 0, "ntt_inv": 0}
+    views = {"ntt_fwd": 0, "ntt_inv": 0}
+    leads, done, checked = {}, set(), 0
+    for (pid, name, shape, strides, offset, lo, epilogue), plan in log.items():
+        key = (pid, name, shape, strides, offset % 4, lo, epilogue)
+        if key in done:
+            continue
+        done.add(key)
+        views[name] += 1
+        leads.setdefault(plan.n, set()).add(shape[:-2])
+        # a broadcast dimension (stride 0) holds one polynomial, read again
+        held = tuple(1 if st == 0 else sz for sz, st in zip(shape, strides))
+        extent = offset % 4 + 1 + sum(
+            (sz - 1) * st for sz, st in zip(held, strides))
+        for bound_mult in (1, 2) if plan.lazy else (1,):
+            dense = random_residues(gen, plan.primes, held[:-2], lo, shape[-2],
+                                    plan.n, bound_mult, device)
+            base = torch.zeros(extent, dtype=dense.dtype, device=device)
+            base.as_strided(held, strides, offset % 4).copy_(dense)
+            x = base.as_strided(shape, strides, offset % 4)
+            dense = dense.expand(shape)
+            if name == "ntt_fwd":
+                got = plan.fwd(x, lo=lo, epilogue=epilogue)
+                want = plan.fwd_plain(dense, lo=lo, epilogue=epilogue)
+            else:
+                got = plan.inv(x, lo=lo)
+                want = plan.inv_plain(dense, lo=lo)
+            err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+            worst[name] = max(worst[name], err)
+            if err:
+                fail(f"path_views: {name} disagrees with its plain version "
+                     f"(max_abs_err {err}) at N={plan.n} shape={shape} "
+                     f"strides={strides} lo={lo} epilogue={epilogue}")
+            checked += 1
+    if not all(views.values()):
+        fail(f"path_views: the main path noted no view of a kernel: {views}")
+    emit({"phase": "path_views", "views": views, "noted": len(log),
+          "comparisons": checked,
+          "leading_shapes": {n: sorted(v) for n, v in sorted(leads.items())},
+          "max_abs_err": worst, "tolerance": 0,
+          "seconds": time.perf_counter() - t0})
+    return worst
+
+
 def bound_of(name, polys, nl, n):
     """Least milliseconds the card could take for ``polys`` transforms
     (``name``: ``ntt_fwd`` or ``ntt_inv``) of ``n`` points over ``nl``
@@ -186,6 +263,18 @@ def time_shape(plan, gen, lead, lo, nl, device, with_host_loop=False):
     return row
 
 
+def logreg_context(device):
+    """The registered logistic-regression context (14 data limbs, two
+    special primes, digit groups of 2), whose plan ``kernel_times`` times."""
+    from reference_seal_backend_tpu_torch.schemes.params import make_ckks_context
+
+    ctx = make_ckks_context(16384, mult_depth=6, scale_bits=50, device=device)
+    if (ctx.L, ctx.n_special, ctx.digit_group, ctx.plan.lazy) != (14, 2, 2, True):
+        fail(f"logistic-regression context changed: L={ctx.L} "
+             f"ns={ctx.n_special} G={ctx.digit_group} lazy={ctx.plan.lazy}")
+    return ctx
+
+
 def phase_kernels(device):
     from reference_seal_backend_tpu_torch.nums import primegen
     from reference_seal_backend_tpu_torch.ops import ntt as ntt_mod
@@ -198,7 +287,7 @@ def phase_kernels(device):
     if len(ctx.primes) != 7 or not ctx.plan.lazy:
         fail(f"registered context changed: primes={ctx.primes}")
     L, sp = ctx.L, ctx.sp_row
-    # shapes the main path gives the kernels (Latency 1x1, Offline 8x8),
+    # shapes a dot product gives the kernels (Latency 1x1, Offline 8x8),
     # then a row count of 1 and of 37 and a lone special-prime row
     main_shapes = [
         ((1, 1), 0, L), ((1, 1, L), 0, L), ((1, 1, L), sp, 1),
@@ -274,12 +363,12 @@ def phase_kernel_times(device):
     # one wave or less: what a 1 x 1 dot product launches
     for lead, lo, k in (((1, 1), 0, L), ((1, 1, L), 0, L), ((1, 1, L), sp, 1)):
         rows.append(time_shape(ctx.plan, gen, lead, lo, k, device))
-    # what logistic regression will launch: its depth-6, 128-bit context
-    # (make_ckks_context(N, mult_depth=6, scale_bits=50)) has 14 data limbs at
-    # either size, all below 2^30; 6 stands for a level late in the circuit
-    for n_big in (16384, 32768):
-        primes = tuple(primegen.gen_ntt_primes(BIG_LIMBS, 30, 2 * n_big))
-        plan = ntt_mod.make_plan(n_big, primes, device)
+    # what logistic regression launches: the plan of its registered context
+    # at N = 16384 (14 data limbs; 6 is a level late in the circuit), and a
+    # plan of as many limbs, all below 2^30, at N = 32768
+    primes = tuple(primegen.gen_ntt_primes(BIG_LIMBS, 30, 2 * 32768))
+    for plan in (logreg_context(device).plan,
+                 ntt_mod.make_plan(32768, primes, device)):
         for k in (6, BIG_LIMBS):
             rows.append(time_shape(plan, gen, (8,), 0, k, device))
     emit({"phase": "kernel_times", "method": "CUDA graph replay, CUDA events",
@@ -289,28 +378,43 @@ def phase_kernel_times(device):
 
 def phase_main_path(device):
     from reference_seal_backend_tpu_torch.engine import runner
+    from reference_seal_backend_tpu_torch.ops import ntt as ntt_mod
     from reference_seal_backend_tpu_torch.ops.cuda import ntt as ntt_cuda
 
+    # more than one timed iteration of each new descriptor, so that the
+    # launch counts of two iterations can be compared
+    per = {name: {"min_test_time_ms": 300.0} for name in MATMULT + LOGREG}
+    per[LOGREG[1]] = {"params": {"batch_size": LOGREG_BATCH},
+                      "min_test_time_ms": 1500.0}
     with tempfile.TemporaryDirectory() as report_dir:
+        ntt_mod.call_log = {}  # every view the kernels are handed
         ntt_cuda.reset_launches()
         t0 = time.perf_counter()
         results = runner.run_all(
-            SIX, seed=SEED, sample_size=8, report_dir=report_dir,
-            device=device,
+            ELEVEN, seed=SEED, sample_size=8, report_dir=report_dir,
+            per_benchmark=per, device=device,
         )
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(ntt_cuda.launches)
+        views, ntt_mod.call_log = ntt_mod.call_log, None
     failed = [r.name for r in results if not r.passed]
-    if failed or len(results) != len(SIX):
+    if failed or len(results) != len(ELEVEN):
         fail(f"main path: failed benchmarks {failed}: "
              f"{[r.error for r in results if r.error]}")
     for r in results:
-        if "dot_product" in r.name and r.ntt_launches_per_operate <= 0:
+        if "eltwise" not in r.name and r.ntt_launches_per_operate <= 0:
             fail(f"{r.name}: operate launched no NTT kernel")
-        if r.description.get("poly_modulus_degree") != "8192" or (
-            r.description.get("security") != "128 bits"
-        ):
+        if not r.ntt_launches_steady:
+            fail(f"{r.name}: operate's NTT launches differ between iterations")
+        if r.name in MATMULT + LOGREG and r.iterations < 2:
+            fail(f"{r.name}: one timed iteration only")
+        want = {"poly_modulus_degree": "8192", "security": "128 bits"}
+        if r.name in LOGREG:
+            want.update(poly_modulus_degree="16384", key_switch_digit_group="2",
+                        scale_bits="50")
+        got = {k: r.description.get(k) for k in want}
+        if got != want:
             fail(f"{r.name}: not at the registered parameters: {r.description}")
     for name, count in launches.items():
         if count <= 0:
@@ -318,17 +422,26 @@ def phase_main_path(device):
     emit({
         "phase": "main_path", "failed": 0, "total": len(results),
         "wall_s": wall, "launches": launches,
+        "offline_samples": {"eltwise, dot product": [8, 8],
+                            "logistic regression": [1, 1, LOGREG_BATCH]},
         "benchmarks": {
             r.name: {
                 "operate_ms": r.wall_ms_operate,
                 "results_per_s": r.ops_per_sec,
                 "iterations": r.iterations,
                 "ntt_launches_per_operate": r.ntt_launches_per_operate,
+                "setup_s": r.setup_s,
+                "peak_device_bytes": r.peak_device_bytes,
+                "held_before_bytes": r.held_before_bytes,
+                **r.notes,
+                # one Offline logistic-regression result holds the batch
+                **({"samples_per_s": LOGREG_BATCH * r.ops_per_sec}
+                   if r.name == LOGREG[1] else {}),
             }
             for r in results
         },
     })
-    return launches
+    return launches, views
 
 
 def main() -> int:
@@ -354,7 +467,9 @@ def main() -> int:
           "specialised_log_n": list(ntt_cuda.KERNEL_LOG_NS), "seconds": seconds})
 
     worst = phase_kernels(device)
-    launches = phase_main_path(device)
+    launches, views = phase_main_path(device)
+    on_path = phase_path_views(views, device)
+    worst = {k: max(worst[k], on_path[k]) for k in worst}
     timed = phase_kernel_times(device)
 
     replaces = {

@@ -2,9 +2,10 @@
 
 Counterpart of ``reference_seal_backend_tpu/engine/registry.py``.  The
 port's engine registers the descriptors whose workloads are ported — the
-six CKKS element-wise and dot-product ones so far — and grows to the
-reference's 20 slice by slice (ROADMAP.md Queue 1).  ``create_benchmark``
-on anything else raises.
+eleven CKKS ones so far: element-wise add/mult and dot product (Latency and
+Offline), logistic regression (Latency and Offline) and the three
+matrix-multiply packings — and grows to the reference's 20 with the BFV
+slice (ROADMAP.md Queue 1).  ``create_benchmark`` on anything else raises.
 """
 
 from __future__ import annotations
@@ -12,6 +13,9 @@ from __future__ import annotations
 from typing import Dict, Optional, Sequence, Tuple
 
 from reference_seal_backend_tpu_torch.engine.descriptor import (
+    MATMULT_CIPHERBATCHAXIS,
+    MATMULT_ROW,
+    MATMULT_VAL,
     BenchmarkDescriptor,
     Scheme,
     Workload,
@@ -20,12 +24,32 @@ from reference_seal_backend_tpu_torch.engine.descriptor import (
 from reference_seal_backend_tpu_torch.models.base import HEBenchmark
 from reference_seal_backend_tpu_torch.models.dot_product import DotProductBenchmark
 from reference_seal_backend_tpu_torch.models.eltwise import ElementWiseBenchmark
+from reference_seal_backend_tpu_torch.models.logreg import LogRegBenchmark
+from reference_seal_backend_tpu_torch.models.matmult import (
+    MatMultCipherBatchAxisBenchmark,
+    MatMultRowBenchmark,
+    MatMultValBenchmark,
+)
 from reference_seal_backend_tpu_torch.utils.device import pick_device
+
+# matrix multiply: the packing is the descriptor's algorithm-variant id
+_MATMULT = {
+    MATMULT_VAL: MatMultValBenchmark,
+    MATMULT_CIPHERBATCHAXIS: MatMultCipherBatchAxisBenchmark,
+    MATMULT_ROW: MatMultRowBenchmark,
+}
+
+
+def _matmult(descriptor: BenchmarkDescriptor, params, device) -> HEBenchmark:
+    return _MATMULT[descriptor.other](descriptor, params, device)
+
 
 _PORTED = {
     Workload.ELTWISE_ADD: ElementWiseBenchmark,
     Workload.ELTWISE_MULT: ElementWiseBenchmark,
     Workload.DOT_PRODUCT: DotProductBenchmark,
+    Workload.MATRIX_MULTIPLY: _matmult,
+    Workload.LOGREG_POLY_D3: LogRegBenchmark,
 }
 
 

@@ -37,6 +37,7 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from reference_seal_backend_tpu_torch.engine.descriptor import (
     BenchmarkDescriptor,
@@ -59,12 +60,26 @@ class RunResult:
     error: str = ""
     # report fragments from HEBenchmark.describe (models/base.py)
     description: Dict[str, str] = field(default_factory=dict)
-    # CUDA NTT kernel launches per timed ``operate`` (0 on the CPU, where
-    # the plain version runs); not written to report.csv
+    # What follows is not written to report.csv.
+    # CUDA NTT kernel launches of one timed ``operate`` (0 on the CPU, where
+    # the plain version runs): the most over the timed iterations, and
+    # whether every iteration launched as many
     ntt_launches_per_operate: int = 0
+    ntt_launches_steady: bool = True
+    # seconds from building the benchmark (context, keygen) to the loaded
+    # operands, i.e. everything before the first ``operate``
+    setup_s: float = 0.0
+    # torch.cuda.max_memory_allocated() over set-up and every ``operate``:
+    # all that the process held on the card at that moment, including
+    # ``held_before_bytes``, what it already held when this benchmark began
+    # (earlier benchmarks' cached plans and tables).  Both 0 on the CPU.
+    peak_device_bytes: int = 0
+    held_before_bytes: int = 0
+    # the workload's own remarks on this run (HEBenchmark.run_notes)
+    notes: Dict[str, int] = field(default_factory=dict)
 
 
-def _gen_inputs(
+def gen_inputs(
     desc: BenchmarkDescriptor,
     params: Dict[str, int],
     rng: np.random.Generator,
@@ -94,6 +109,19 @@ def _gen_inputs(
                 for j in range(batch1)
             ]
         return [a, b], truth
+    if wl is Workload.MATRIX_MULTIPLY:
+        r0, c0, c1 = params["rows_m0"], params["cols_m0"], params["cols_m1"]
+        m0 = rng.uniform(-1, 1, (r0, c0))
+        m1 = rng.uniform(-1, 1, (c0, c1))
+        return [m0, m1], lambda: [m0 @ m1]
+    if wl is Workload.LOGREG_POLY_D3:
+        n = params["n"]
+        batch = params.get("batch_size", 1) if desc.category is Category.OFFLINE else 1
+        w = rng.uniform(-1, 1, n)
+        b = float(rng.uniform(-1, 1))
+        x = rng.uniform(-1, 1, (batch, n))
+        sig = lambda z: 0.5 + 0.15012 * z - 0.0015930078125 * z ** 3
+        return [w, b, x], lambda: [sig(x @ w + b)]
     raise KeyError(wl)
 
 
@@ -105,6 +133,8 @@ CKKS_ATOL = {
     Workload.ELTWISE_ADD: 5e-5,
     Workload.ELTWISE_MULT: 5e-5,
     Workload.DOT_PRODUCT: 5e-5,
+    Workload.MATRIX_MULTIPLY: 5e-5,
+    Workload.LOGREG_POLY_D3: 5e-5,
 }
 
 
@@ -139,12 +169,27 @@ def run_benchmark(
             b1 = (dc[-1] if dc[-1] > 0 else sample_size) if len(dc) > 1 else 1
         else:
             b0 = b1 = 1
+        if (
+            desc.workload is Workload.LOGREG_POLY_D3
+            and desc.category is Category.OFFLINE
+            and not (params or {}).get("batch_size")
+        ):
+            # The logreg batch is registered FLEXIBLE (0) and runs at the
+            # sample size unless the caller pinned an explicit batch_size.
+            params = dict(params or {}, batch_size=b1)
+        on_card = engine.device.type == "cuda"
+        held_before = 0
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(engine.device)
+            held_before = torch.cuda.memory_allocated(engine.device)
+        t_setup = time.perf_counter()
         bench = engine.create_benchmark(desc, params)
         rng = np.random.default_rng(seed)
-        inputs, truth_fn = _gen_inputs(desc, bench.params, rng, b0, b1)
+        inputs, truth_fn = gen_inputs(desc, bench.params, rng, b0, b1)
         h = bench.encode(inputs)
         h = bench.encrypt(h)
-        loaded = bench.load(h)
+        loaded = bench.block(bench.load(h))
+        setup_s = time.perf_counter() - t_setup
 
         # warmup (like the harness's warmup_iterations_count for Latency;
         # on the card the first pass also builds and loads the kernels)
@@ -152,16 +197,18 @@ def run_benchmark(
             result = bench.block(bench.operate(loaded))
 
         iters = 0
-        launched = sum(ntt_cuda.launches.values())
+        per_iter = set()
         t0 = time.perf_counter()
         while True:
+            launched = sum(ntt_cuda.launches.values())
             result = bench.block(bench.operate(loaded))
+            per_iter.add(sum(ntt_cuda.launches.values()) - launched)
             iters += 1
             elapsed = (time.perf_counter() - t0) * 1e3
             if elapsed >= min_test_time_ms and iters >= 1:
                 break
         wall_ms = elapsed / iters
-        launched = (sum(ntt_cuda.launches.values()) - launched) // iters
+        peak = torch.cuda.max_memory_allocated(engine.device) if on_card else 0
 
         outs = bench.decode(bench.decrypt(bench.store(result)))
         want = truth_fn()
@@ -177,7 +224,11 @@ def run_benchmark(
         ops = n_results / (wall_ms / 1e3) if wall_ms > 0 else 0.0
         return RunResult(
             name, passed, wall_ms, ops, iters, description=bench.describe(),
-            ntt_launches_per_operate=launched,
+            ntt_launches_per_operate=max(per_iter),
+            ntt_launches_steady=len(per_iter) == 1,
+            setup_s=setup_s, peak_device_bytes=peak,
+            held_before_bytes=held_before,
+            notes=bench.run_notes(loaded),
         )
     except Exception as e:  # noqa: BLE001 — harness reports, not raises
         return RunResult(name, False, 0.0, 0.0, 0, error=f"{type(e).__name__}: {e}")

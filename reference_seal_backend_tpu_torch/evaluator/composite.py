@@ -5,18 +5,31 @@ Counterpart of ``reference_seal_backend_tpu/evaluator/composite.py``:
 * :func:`accumulate` — sum-across-slots, by one hoisted multi-rotation for
   small counts, a baby-step/giant-step pair of hoisted rotations for medium
   counts, and a log2 rotate-add tree beyond.
+* :func:`collapse` — gather slot 0 of k ciphertexts into one ciphertext by a
+  one-hot mask and a log2(k) doubling merge: each round rotates half the
+  survivors by a power-of-two step, one batched key switch per round.
+* :func:`evaluate_polynomial` — Horner evaluation with plaintext
+  coefficients, each encoded at the running value's exact scale.
 
-``collapse`` and ``evaluate_polynomial`` come with the logistic-regression
-slice (ROADMAP.md Queue 1).
+The plaintext constants of ``collapse`` and ``evaluate_polynomial`` (the
+mask, the coefficients) are encoded on the host with the float64 FFT.  They
+depend only on the value, the scale and the level, so they are encoded once
+per evaluator and kept (``Evaluator.plain_cache``): a timed ``operate`` after
+the warm-up encodes nothing.
 """
 
 from __future__ import annotations
 
 import math
-from typing import List
+from dataclasses import replace
+from typing import List, Sequence
+
+import numpy as np
+import torch
 
 from reference_seal_backend_tpu_torch.evaluator.eval import Evaluator
-from reference_seal_backend_tpu_torch.schemes.core import Ciphertext
+from reference_seal_backend_tpu_torch.schemes import ckks as ckks_mod
+from reference_seal_backend_tpu_torch.schemes.core import Ciphertext, Plaintext
 
 # Below this count the linear hoisted form (count-1 rotations sharing ONE
 # digit decomposition + ONE mod-down, Evaluator.rotate_sum) costs fewer
@@ -78,3 +91,104 @@ def accumulate(ev: Evaluator, ct: Ciphertext, count: int) -> Ciphertext:
     for step in rotations_for_accumulate(row_count, ctx.slots):
         out = ev.add(out, ev.rotate(out, step))
     return out
+
+
+def _const_plain(
+    ev: Evaluator, kind: str, value: float, scale: float, level: int
+) -> Plaintext:
+    """Plaintext of a public constant at ``scale``, switched to ``level``:
+    ``kind`` "fill" puts ``value`` into every slot, "slot0" into slot 0 only.
+    Encoded once per evaluator; the key is everything the integers depend on."""
+    key = (kind, float(value), float(scale), level)
+    if key not in ev.plain_cache:
+        ctx = ev.ctx
+        if kind == "fill":
+            vec = np.full(ctx.slots, float(value))
+        else:
+            vec = np.zeros(ctx.slots)
+            vec[0] = float(value)
+        pt = ckks_mod.encoder_for(ctx).encode(vec, scale=scale)
+        ev.plain_cache[key] = ev.mod_switch_plain_to(pt, level)
+    return ev.plain_cache[key]
+
+
+def collapse(ev: Evaluator, cts: Ciphertext, count: int) -> Ciphertext:
+    """From a batched ciphertext [count, ...] whose samples hold their
+    value in slot 0, build one ciphertext with sample i's value in slot i.
+
+    Consumes one rescale level (the one-hot mask multiply).  Requires Galois
+    keys for steps -2^s, s < ceil(log2(count)).
+    """
+    ctx = ev.ctx
+    if cts.data.ndim < 4 or cts.data.shape[0] < count:
+        raise ValueError("expected leading batch axis of >= count samples")
+    # One-hot mask at slot 0, encoded at the *compensating* scale so the
+    # post-rescale result lands at exactly ctx.scale.  The expression keeps
+    # the reference's order of operations: one ulp in the scale flips
+    # roundings of the encode.
+    drop = 1.0
+    for i in range(cts.level - ctx.rescale_group, cts.level):
+        drop *= ctx.data_primes[i]
+    pt = _const_plain(
+        ev, "slot0", 1.0, drop * ctx.scale / cts.scale, cts.level
+    )
+    masked = ev.rescale_to_next(ev.multiply_plain(cts, pt))
+    # doubling merge: round s combines block pairs, rotating the odd
+    # block right by 2^s so its slots land after the even block's.
+    cur = masked
+    k = cur.data.shape[0]
+    s = 1
+    while k > 1:
+        pairs = k // 2
+        even = replace(cur, data=cur.data[0 : 2 * pairs : 2])
+        odd = replace(cur, data=cur.data[1 : 2 * pairs : 2])
+        moved = ev.rotate(odd, -s)
+        merged = ev.add(even, moved)
+        if k % 2:
+            merged = replace(
+                merged, data=torch.cat([merged.data, cur.data[-1:]], dim=0)
+            )
+        cur = merged
+        k = pairs + (k % 2)
+        s *= 2
+    return replace(cur, data=cur.data[0])
+
+
+def collapse_rotation_steps(count: int) -> List[int]:
+    """Galois rotation steps collapse() needs for a given batch size."""
+    if count <= 1:
+        return []
+    return [-(1 << s) for s in range(math.ceil(math.log2(count)))]
+
+
+def evaluate_polynomial(
+    ev: Evaluator, ct: Ciphertext, coeffs: Sequence[float]
+) -> Ciphertext:
+    """Horner evaluation of sum coeffs[i]·x^i on a CKKS ciphertext.
+
+    The running value starts as the *plaintext* top coefficient, so the
+    first Horner step is a ct-pt multiply, and each coefficient is encoded
+    at the running value's exact scale.  Needs len(coeffs)-1 rescale levels
+    below ct's current level.
+    """
+    if len(coeffs) == 0:
+        raise ValueError("polynomial needs at least one coefficient")
+    if len(coeffs) == 1:
+        # Constant polynomial: a transparent (noiseless) ciphertext of
+        # the public constant — nothing secret to protect.
+        pt = _const_plain(ev, "fill", coeffs[0], ct.scale, ct.level)
+        zero = torch.zeros_like(pt.data)
+        return replace(
+            ct, data=torch.stack([pt.data, zero], dim=-3), scale=pt.scale
+        )
+    rest = list(coeffs[:-1])[::-1]
+    # First step: r = c_top·x + a via ct-pt multiply (no relin needed).
+    top = _const_plain(ev, "fill", coeffs[-1], ct.scale, ct.level)
+    r = ev.rescale_to_next(ev.multiply_plain(ct, top))
+    r = ev.add_plain(r, _const_plain(ev, "fill", rest[0], r.scale, r.level))
+    x = ct
+    for a in rest[1:]:
+        x = ev.mod_switch_to(x, r.level)
+        r = ev.rescale_to_next(ev.relinearize(ev.multiply(r, x)))
+        r = ev.add_plain(r, _const_plain(ev, "fill", a, r.scale, r.level))
+    return r

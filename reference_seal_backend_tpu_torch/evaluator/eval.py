@@ -64,6 +64,10 @@ class Evaluator:
         # hoisted rotations (rotate_sum); built lazily per element when
         # not already precomputed in keys.galois_p5.
         self._hoist_cache: dict = {}
+        # Encoded plaintext constants of the composite ops (the collapse
+        # mask, polynomial coefficients), by (kind, value, scale, level):
+        # filled by the first call, so later ones encode nothing on the host.
+        self.plain_cache: dict = {}
 
     # -- linear ops ---------------------------------------------------------
 

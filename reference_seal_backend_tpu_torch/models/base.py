@@ -156,6 +156,12 @@ class HEBenchmark(abc.ABC):
                 )
         return h
 
+    def handle(self, stage: str, payload, meta: Optional[Dict] = None) -> Handle:
+        """Construct a correctly-tagged handle for this workload family."""
+        return Handle(
+            tag=f"{self.tag_family}_{stage}", payload=payload, meta=meta or {}
+        )
+
     def rotation_steps(self) -> List[int]:
         """Rotation steps this workload needs Galois keys for."""
         return []
@@ -231,6 +237,11 @@ class HEBenchmark(abc.ABC):
         desc["key_switch_digit_group"] = str(ctx.digit_group)
         desc["num_threads"] = str(self.num_threads)
         return desc
+
+    def run_notes(self, loaded: Handle) -> Dict[str, int]:
+        """What the runner should report of how ``operate`` treats these
+        operands, beyond its time (nothing, unless a workload overrides)."""
+        return {}
 
     def block(self, handle: Handle) -> Handle:
         """Block until device work queued so far has finished (used by the

@@ -42,7 +42,7 @@ from __future__ import annotations
 
 import functools
 from dataclasses import dataclass, field
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -59,6 +59,19 @@ MAX_RADIX_LOG = 4
 #: log2 N of the sizes the kernels are specialised for at compile time; any
 #: other power of two takes the kernels' generic stage loop
 KERNEL_LOG_NS = ntt_cuda.KERNEL_LOG_NS
+
+#: Set to a dict to have :meth:`NttPlan.fwd` / :meth:`NttPlan.inv` note every
+#: distinct way they are called: ``(id(plan), "ntt_fwd" | "ntt_inv", shape,
+#: strides, storage offset, lo, epilogue) -> plan``.  ``chip_smoke.py`` reads
+#: it over a run of the harness and holds the kernels against their plain
+#: versions on exactly those views.  None (the default) notes nothing.
+call_log: Optional[dict] = None
+
+
+def _note(plan, name, x, lo, epilogue):
+    key = (id(plan), name, tuple(x.shape), x.stride(), x.storage_offset(),
+           lo, epilogue)
+    call_log.setdefault(key, plan)
 
 
 def pass_split(log_n: int):
@@ -153,6 +166,8 @@ class NttPlan:
         ``y[..., a:b, :]`` of a contiguous tensor goes to the kernel as it
         is (``ops/cuda/ntt.py`` says which views it takes); the result is a
         new contiguous tensor."""
+        if call_log is not None:
+            _note(self, "ntt_fwd", x, lo, epilogue)
         if x.is_cuda:
             return ntt_cuda.ntt_fwd(
                 x, self.roots, self.roots_shoup, self.p,
@@ -162,6 +177,8 @@ class NttPlan:
 
     def inv(self, x: torch.Tensor, lo: int = 0):
         """Inverse negacyclic NTT (exact inverse of :meth:`fwd`)."""
+        if call_log is not None:
+            _note(self, "ntt_inv", x, lo, None)
         if x.is_cuda:
             return ntt_cuda.ntt_inv(
                 x, self.iroots, self.iroots_shoup, self.p,

@@ -39,20 +39,25 @@ _CONSTANTS = np.array(
 )  # "expand 32-byte k"
 
 
+# least blocks generated per pass (256 KiB of keystream)
+_READ_AHEAD_BLOCKS = 4096
+
+
 def _rotl(x: np.ndarray, k: int) -> np.ndarray:
     return (x << _U32(k)) | (x >> _U32(32 - k))
 
 
 def _quarter(s: np.ndarray, a: int, b: int, c: int, d: int) -> None:
-    """In-place quarter round on state columns (s is [n_blocks, 16])."""
-    s[:, a] += s[:, b]
-    s[:, d] = _rotl(s[:, d] ^ s[:, a], 16)
-    s[:, c] += s[:, d]
-    s[:, b] = _rotl(s[:, b] ^ s[:, c], 12)
-    s[:, a] += s[:, b]
-    s[:, d] = _rotl(s[:, d] ^ s[:, a], 8)
-    s[:, c] += s[:, d]
-    s[:, b] = _rotl(s[:, b] ^ s[:, c], 7)
+    """In-place quarter round on state words (s is [16, n_blocks]: one
+    contiguous row per state word)."""
+    s[a] += s[b]
+    s[d] = _rotl(s[d] ^ s[a], 16)
+    s[c] += s[d]
+    s[b] = _rotl(s[b] ^ s[c], 12)
+    s[a] += s[b]
+    s[d] = _rotl(s[d] ^ s[a], 8)
+    s[c] += s[d]
+    s[b] = _rotl(s[b] ^ s[c], 7)
 
 
 def chacha_blocks(
@@ -62,18 +67,17 @@ def chacha_blocks(
     counters, vectorized: returns [n_blocks, 16] uint32 keystream.
 
     The block counter is effectively 64-bit: bits >= 2^32 carry into the
-    first nonce word, so a single logical stream never repeats (2^32
-    blocks = 256 GiB was a silent wrap before; ChaChaRng reserves nonce
-    word 0 as zero for exactly this carry).  Counters below 2^32 with a
-    zero first nonce word are bit-identical to plain RFC 8439."""
-    state = np.empty((n_blocks, 16), dtype=_U32)
-    state[:, 0:4] = _CONSTANTS
-    state[:, 4:12] = key_words
+    first nonce word, so a single logical stream never repeats (ChaChaRng
+    reserves nonce word 0 as zero for exactly this carry).  Counters below
+    2^32 with a zero first nonce word are bit-identical to plain RFC 8439."""
+    state = np.empty((16, n_blocks), dtype=_U32)
+    state[0:4] = _CONSTANTS[:, None]
+    state[4:12] = np.asarray(key_words, dtype=_U32)[:, None]
     ctr = np.arange(counter0, counter0 + n_blocks, dtype=np.uint64)
-    state[:, 12] = (ctr & np.uint64(0xFFFFFFFF)).astype(_U32)
-    state[:, 13:16] = nonce_words
+    state[12] = (ctr & np.uint64(0xFFFFFFFF)).astype(_U32)
+    state[13:16] = np.asarray(nonce_words, dtype=_U32)[:, None]
     with np.errstate(over="ignore"):
-        state[:, 13] += (ctr >> np.uint64(32)).astype(_U32)
+        state[13] += (ctr >> np.uint64(32)).astype(_U32)
     work = state.copy()
     with np.errstate(over="ignore"):
         for _ in range(10):  # 20 rounds = 10 double rounds
@@ -86,7 +90,7 @@ def chacha_blocks(
             _quarter(work, 2, 7, 8, 13)
             _quarter(work, 3, 4, 9, 14)
         work += state
-    return work
+    return np.ascontiguousarray(work.T)
 
 
 def _int_bytes(v: int) -> bytes:
@@ -139,7 +143,10 @@ class ChaChaRng:
         """Next ``n`` uint32 keystream words."""
         if self._buf.size < n:
             need = n - self._buf.size
-            blocks = (need + 15) // 16 + 1
+            # The stream is the counters' blocks in order, so reading
+            # ahead changes no draw; it spares the ~1000 small numpy calls
+            # of a block-function pass per polynomial-sized draw.
+            blocks = max((need + 15) // 16 + 1, _READ_AHEAD_BLOCKS)
             ks = chacha_blocks(
                 self._key_words, self._nonce, self._counter, blocks
             ).reshape(-1)

@@ -3,8 +3,9 @@
     python3 -m reference_seal_backend_tpu_torch.utils.profile_operate [benchmark ...]
 
 For each named benchmark (default: the CKKS dot product, Latency and Offline
-8 x 8) at its registered parameters it builds the benchmark through the
-port's ``Engine`` on the GPU, warms up, and then reports, as one JSON line:
+8 x 8; Offline logistic regression runs at its default batch of 100) at its
+registered parameters it builds the benchmark through the port's ``Engine``
+on the GPU, warms up, and then reports, as one JSON line:
 
 * ``operate_ms``: host clock around ``operate`` ending in a synchronise,
   mean of 5;
@@ -26,8 +27,9 @@ import numpy as np
 import torch
 
 from reference_seal_backend_tpu_torch.engine import runner
-from reference_seal_backend_tpu_torch.engine.descriptor import Category
+from reference_seal_backend_tpu_torch.engine.descriptor import Category, Workload
 from reference_seal_backend_tpu_torch.engine.registry import Engine
+from reference_seal_backend_tpu_torch.models.logreg import DEFAULT_BATCH
 from reference_seal_backend_tpu_torch.utils.device import card_name_and_power_limit
 
 DEFAULT = ("ckks_dot_product_latency", "ckks_dot_product_offline")
@@ -36,9 +38,15 @@ SAMPLES = 8
 
 def profile_one(engine: Engine, name: str) -> dict:
     desc = engine.find(name)
-    bench = engine.create_benchmark(desc)
     b = SAMPLES if desc.category is Category.OFFLINE else 1
-    inputs, _ = runner._gen_inputs(
+    batch = [b, b]
+    params = None
+    if desc.workload is Workload.LOGREG_POLY_D3:  # operands (W, b, X)
+        b = DEFAULT_BATCH if desc.category is Category.OFFLINE else 1
+        batch = [1, 1, b]
+        params = {"batch_size": b}
+    bench = engine.create_benchmark(desc, params)
+    inputs, _ = runner.gen_inputs(
         desc, bench.params, np.random.default_rng(1234), b, b
     )
     loaded = bench.load(bench.encrypt(bench.encode(inputs)))
@@ -64,7 +72,7 @@ def profile_one(engine: Engine, name: str) -> dict:
     ntt = [k for k in kernels if "ntt_fwd_" in k[0] or "ntt_inv_" in k[0]]
     return {
         "benchmark": name,
-        "batch": [b, b],
+        "batch": batch,
         "operate_ms": operate_ms,
         "profiled_operate_ms": profiled_ms,
         "device_busy_ms": busy,

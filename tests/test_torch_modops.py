@@ -12,6 +12,8 @@ from reference_seal_backend_tpu.nums import primegen
 from reference_seal_backend_tpu.ops import modops as jmod
 from reference_seal_backend_tpu_torch.ops import modops as tmod
 
+import torch_port_util  # noqa: F401  (one CPU thread for PyTorch)
+
 PRIMES = {
     30: primegen.gen_ntt_primes(1, 30, 4096)[0],
     31: primegen.gen_ntt_primes(1, 31, 4096)[0],

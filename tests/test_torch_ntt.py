@@ -14,6 +14,8 @@ from reference_seal_backend_tpu.ops.pallas import ntt_kernel
 from reference_seal_backend_tpu_torch.ops import modops as tmod
 from reference_seal_backend_tpu_torch.ops import ntt as tntt
 
+import torch_port_util  # noqa: F401  (one CPU thread for PyTorch)
+
 
 def _plans(n, n_limbs=3, bits=29):
     primes = tuple(primegen.gen_ntt_primes(n_limbs, bits, 2 * n))
@@ -181,3 +183,23 @@ def test_galois_is_coefficient_automorphism():
 def test_rejects_bad_n():
     with pytest.raises(ValueError):
         tntt.make_plan(48, (97,), "cpu")
+
+
+def test_call_log_notes_each_view_once(monkeypatch):
+    """``call_log`` is off unless set; set to a dict it notes a view's shape,
+    strides, storage offset, first limb and epilogue, once however often the
+    view comes, and changes no result."""
+    _, tp = _plans(64)
+    whole = _t(_data(tp, (2,), 5))
+    view = whole[:, 1:, :]
+    assert tntt.call_log is None
+    want = tp.fwd(view, lo=1, epilogue=False)
+    monkeypatch.setattr(tntt, "call_log", {})
+    for _ in range(2):
+        got = tp.fwd(view, lo=1, epilogue=False)
+    tp.inv(whole)
+    assert tmod.to_numpy(got).tolist() == tmod.to_numpy(want).tolist()
+    assert tntt.call_log == {
+        (id(tp), "ntt_fwd", (2, 2, 64), (192, 64, 1), 64, 1, False): tp,
+        (id(tp), "ntt_inv", (2, 3, 64), (192, 64, 1), 0, 0, None): tp,
+    }

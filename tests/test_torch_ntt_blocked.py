@@ -21,6 +21,8 @@ from reference_seal_backend_tpu_torch.ops import modops as tmod
 from reference_seal_backend_tpu_torch.ops import ntt as tntt
 from reference_seal_backend_tpu_torch.ops.cuda import ntt as ntt_cuda
 
+import torch_port_util  # noqa: F401  (one CPU thread for PyTorch)
+
 BITS = {"lazy": 29, "nonlazy": 31}
 
 

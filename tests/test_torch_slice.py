@@ -1,7 +1,10 @@
 """The slice as a whole: the port's harness runner vs the JAX package's on
-the six CKKS descriptors (eltwise at N=2048 because n=1000 needs >= 1000
-slots, dot product at N=1024), ``sec_level=0``, seed 1234, sample size 2,
-``device="cpu"``.  ``operate``'s result ciphertext must be equal bit for bit
+the six CKKS eltwise and dot-product descriptors (eltwise at N=2048 because
+n=1000 needs >= 1000 slots, dot product at N=1024), ``sec_level=0``, seed
+1234, sample size 2, ``device="cpu"``; the registry, the runner's reports and
+the configuration tier over all eleven ported descriptors (logistic
+regression and matrix multiply are held against the JAX package in
+test_torch_logreg.py and test_torch_matmult.py).  ``operate``'s result ciphertext must be equal bit for bit
 (tolerance 0); decoded outputs equal to ``atol=1e-9, rtol=0`` (same numpy
 code over identical integers) and within the runner's 5e-5 of the truth."""
 
@@ -18,6 +21,8 @@ from reference_seal_backend_tpu_torch.engine.descriptor import Category
 from reference_seal_backend_tpu_torch.engine.registry import Engine as TEngine
 from reference_seal_backend_tpu_torch.ops import modops as tmod
 
+import torch_port_util  # noqa: F401  (one CPU thread for PyTorch)
+
 SIX = (
     "ckks_eltwise_add_latency",
     "ckks_eltwise_mult_latency",
@@ -26,26 +31,42 @@ SIX = (
     "ckks_eltwise_mult_offline",
     "ckks_dot_product_offline",
 )
+ELEVEN = SIX + (
+    "ckks_logistic_regression_poly_d3_latency",
+    "ckks_logistic_regression_poly_d3_offline",
+    "ckks_matrix_multiply_latency",
+    "ckks_matrix_multiply_cipherbatchaxis_latency",
+    "ckks_matrix_multiply_row_latency",
+)
 SEED = 1234
 SAMPLES = 2
 
 
 def _params(name):
-    n = 1024 if "dot_product" in name else 2048
-    return {"poly_modulus_degree": n, "sec_level": 0}
+    p = {"poly_modulus_degree": 2048 if "eltwise" in name else 1024,
+         "sec_level": 0}
+    if "matrix_multiply" in name:
+        p.update(rows_m0=3, cols_m0=4, cols_m1=2)
+    return p
 
 
 def test_engine_registers_exactly_the_ported_six():
+    """Since the logistic-regression and matrix-multiply slice: the eleven
+    CKKS descriptors, every BFV one still refused."""
     eng = TEngine("cpu")
-    assert sorted(eng.names()) == sorted(SIX)
+    assert sorted(eng.names()) == sorted(ELEVEN)
     jeng = JEngine()
-    for name in SIX:  # same registered parameters as the reference
+    assert sorted(eng.names()) == sorted(n for n in jeng.names() if n.startswith("ckks_"))
+    for name in ELEVEN:  # same registered parameters as the reference
         assert eng.find(name).default_params == jeng.find(name).default_params
-        assert eng.find(name).default_params["poly_modulus_degree"] == 8192
-    with pytest.raises(NotImplementedError):
-        eng.create_benchmark(jeng.find("bfv_dot_product_latency"))
-    with pytest.raises(NotImplementedError):
-        eng.create_benchmark(jeng.find("ckks_matrix_multiply_row_latency"))
+        assert eng.find(name).default_params["poly_modulus_degree"] == (
+            16384 if "logistic" in name else 8192
+        )
+        assert eng.find(name).other == jeng.find(name).other
+    for name in jeng.names():
+        if name.startswith("bfv_"):
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                eng.create_benchmark(jeng.find(name))
 
 
 @pytest.mark.parametrize("name", SIX)
@@ -56,7 +77,7 @@ def test_pipeline_bit_exact(name):
     tb = teng.create_benchmark(tdesc, _params(name))
     b = SAMPLES if tdesc.category is Category.OFFLINE else 1
     jin, jtruth = jrunner._gen_inputs(jdesc, jb.params, np.random.default_rng(SEED), b, b)
-    tin, ttruth = trunner._gen_inputs(tdesc, tb.params, np.random.default_rng(SEED), b, b)
+    tin, ttruth = trunner.gen_inputs(tdesc, tb.params, np.random.default_rng(SEED), b, b)
     for x, y in zip(jin, tin):
         np.testing.assert_array_equal(x, y)
 
@@ -85,15 +106,15 @@ def test_pipeline_bit_exact(name):
 
 
 def test_run_all_failed_zero_and_same_reports(tmp_path, capsys):
-    per = {name: {"params": _params(name)} for name in SIX}
+    per = {name: {"params": _params(name)} for name in ELEVEN}
     tdir, jdir = str(tmp_path / "t"), str(tmp_path / "j")
     results = trunner.run_all(
-        SIX, seed=SEED, sample_size=SAMPLES, report_dir=tdir,
+        ELEVEN, seed=SEED, sample_size=SAMPLES, report_dir=tdir,
         per_benchmark=per, min_test_time_ms=0, device="cpu",
     )
     out = capsys.readouterr().out
-    assert "[ Info    ] Total: 6" in out and "[ Info    ] Failed: 0" in out
-    assert out.count("[ OK     ]") == 6
+    assert "[ Info    ] Total: 11" in out and "[ Info    ] Failed: 0" in out
+    assert out.count("[ OK     ]") == 11
     assert all(r.passed and r.iterations >= 1 for r in results)
     assert all(r.ntt_launches_per_operate == 0 for r in results)  # CPU: plain
     jrunner.run_all(
@@ -107,7 +128,7 @@ def test_run_all_failed_zero_and_same_reports(tmp_path, capsys):
             jrows = list(csv.reader(f))
         assert trows[0] == jrows[0], fname  # same header
     with open(os.path.join(tdir, "summary.csv")) as f:
-        assert list(csv.reader(f))[1] == ["6", "0"]
+        assert list(csv.reader(f))[1] == ["11", "0"]
 
 
 def test_cli_on_cpu(tmp_path, capsys):
@@ -118,6 +139,37 @@ def test_cli_on_cpu(tmp_path, capsys):
     ])
     out = capsys.readouterr().out
     assert rc == 0 and "[ Info    ] Failed: 0" in out
+
+
+def test_cli_on_cpu_logreg_and_matmult(tmp_path, capsys):
+    rc = trunner.main([
+        "--device", "cpu", "--benchmarks",
+        "ckks_logistic_regression_poly_d3_latency",
+        "ckks_matrix_multiply_row_latency", "--poly_modulus_degree", "1024",
+        "--sec_level", "0", "--report_root_path", str(tmp_path),
+        "--min_test_time_ms", "0",
+    ])
+    out = capsys.readouterr().out
+    assert rc == 0 and "[ Info    ] Failed: 0" in out and "Total: 2" in out
+
+
+def test_logreg_offline_batch_is_flexible():
+    """Offline logistic regression without a pinned ``batch_size`` runs at
+    the sample size; a pinned one wins."""
+    name = "ckks_logistic_regression_poly_d3_offline"
+    eng = TEngine("cpu")
+    p = _params(name)
+    seen = []
+    create = eng.create_benchmark
+    eng.create_benchmark = lambda d, params=None: seen.append(create(d, params)) or seen[-1]
+    res = trunner.run_benchmark(eng, eng.find(name), SEED, p, sample_size=3,
+                                min_test_time_ms=0)
+    assert res.passed, res.error
+    assert seen[-1].batch == 3
+    res = trunner.run_benchmark(eng, eng.find(name), SEED, dict(p, batch_size=2),
+                                sample_size=3, min_test_time_ms=0)
+    assert res.passed, res.error
+    assert seen[-1].batch == 2
 
 
 def test_cli_rejects_unknown_and_unported_names():
@@ -140,7 +192,10 @@ def test_config_tier_roundtrip(tmp_path):
     path = str(tmp_path / "cfg.yaml")
     trunner.dump_config(path)
     names, per, seed, min_ms = trunner.load_config(path)
-    assert tuple(sorted(names)) == tuple(sorted(SIX))
+    assert tuple(sorted(names)) == tuple(sorted(ELEVEN))
+    assert per["ckks_logistic_regression_poly_d3_offline"]["params"][
+        "poly_modulus_degree"] == 16384
+    assert per["ckks_matrix_multiply_row_latency"]["params"]["cols_m0"] == 9
     assert seed == 1234 and min_ms is None
     assert per["ckks_dot_product_offline"]["params"]["n"] == 100
     assert per["ckks_dot_product_offline"]["sample_size"] == (

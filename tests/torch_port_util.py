@@ -2,11 +2,18 @@
 the JAX package and in the PyTorch port, and carry state across as numpy."""
 
 import numpy as np
+import torch
 
 from reference_seal_backend_tpu.schemes import params as jparams
 from reference_seal_backend_tpu_torch import convert
 from reference_seal_backend_tpu_torch.ops import modops as tmod
 from reference_seal_backend_tpu_torch.schemes import params as tparams
+
+# The suite runs several worker processes on one machine.  At the tests'
+# sizes PyTorch's CPU kernels gain nothing from intra-op threads, and a
+# thread pool per worker oversubscribes the cores so badly that a file takes
+# ten times as long as alone.  Every test_torch_* file imports this module.
+torch.set_num_threads(1)
 
 
 def contexts(n, digit_group=None, mult_depth=2):
@@ -49,3 +56,36 @@ def assert_same_ct(got, want):
     np.testing.assert_array_equal(tmod.to_numpy(got.data), np.asarray(want.data))
     assert got.level == want.level
     assert got.scale == want.scale
+
+
+def check_ntt_views(monkeypatch):
+    """Hold every tensor that reaches ``NttPlan.fwd`` / ``NttPlan.inv`` to the
+    rules of the CUDA wrapper (``ops/cuda/ntt.py``): a contiguous tensor or a
+    limb slice of one, rows at multiples of 16 bytes.  On the CPU the plain
+    version takes any strides, so without this a view that only the card
+    refuses would pass every test here.  Pure stride arithmetic; raises where
+    the card would.  Returns the list of shapes seen."""
+    from reference_seal_backend_tpu_torch.ops import ntt as tntt
+    from reference_seal_backend_tpu_torch.ops.cuda import ntt as ntt_cuda
+
+    seen = []
+
+    def held(x, n):
+        _, row_stride = ntt_cuda._row_layout(x, n)
+        if x.storage_offset() % 4 or row_stride % 4:
+            raise ValueError(f"rows not at multiples of 16 bytes: {x.stride()}")
+        seen.append(tuple(x.shape))
+
+    fwd, inv = tntt.NttPlan.fwd, tntt.NttPlan.inv
+
+    def fwd_held(self, x, lo=0, epilogue=True):
+        held(x, self.n)
+        return fwd(self, x, lo, epilogue)
+
+    def inv_held(self, x, lo=0):
+        held(x, self.n)
+        return inv(self, x, lo)
+
+    monkeypatch.setattr(tntt.NttPlan, "fwd", fwd_held)
+    monkeypatch.setattr(tntt.NttPlan, "inv", inv_held)
+    return seen
