@@ -19,21 +19,25 @@ Phases (each prints one JSON line; any failure ends the run non-zero):
    ``path_views`` (run after ``main_path``) both kernels against their plain
    versions once more, on every distinct view (plan, shape, strides,
    alignment, first limb, epilogue) that the main path handed them: the
-   views are noted while the main path runs, not listed by hand.
+   views are noted while the main path runs, not listed by hand (among them
+   the BFV multiply's 10-limb views over q u Bsk at N = 8192).
    ``kernel_times`` (run last) both kernels timed at
    ``[64, 7, 8192]``, at the one-wave shapes of a 1 x 1 dot product, with the
    logistic-regression context's plan at N = 16384 and with a 14-limb plan at
    N = 32768, each beside its bound; the plain versions at ``[64, 7, 8192]``.
-4. ``main_path``   the port's harness runner on the eleven CKKS descriptors at
-   their registered parameters, 128-bit security enforced, seed 1234:
-   element-wise and dot product at N = 8192, depth 2, 8 x 8 sample pairs for
-   the Offline ones; the three matrix-multiply packings at N = 8192,
-   10 x 9 x 8; logistic regression at N = 16384, depth 6, scale 50, 16
+4. ``main_path``   the port's harness runner on all 20 descriptors at their
+   registered parameters, 128-bit security enforced, seed 1234: under CKKS
+   and BFV element-wise and dot product at N = 8192, depth 2, 8 x 8 sample
+   pairs for the Offline ones, and the three matrix-multiply packings at
+   N = 8192, 10 x 9 x 8 (BFV: 4 data primes, t = 1032193, digit groups of
+   2); CKKS logistic regression at N = 16384, depth 6, scale 50, 16
    features, Latency and Offline at a batch of 100.  Requires ``Failed: 0``
-   and NTT kernel launches, as many in every iteration, in every ``operate``
-   that switches keys.  Per descriptor: ``operate_ms``, results per second,
-   launches, set-up seconds, peak device memory, and the chunking of the
-   logistic-regression dots stage.  (Where the device time of one
+   (exact equality under BFV) and NTT kernel launches, as many in every
+   iteration, in every ``operate`` that switches keys or multiplies under
+   BFV (the BEHZ multiply: four).  Per descriptor: ``operate_ms``, results
+   per second, launches, set-up seconds, peak device memory, the chunking of
+   the logistic-regression dots stage and, under BFV, the noise budget left
+   in the result.  (Where the device time of one
    ``operate`` goes, launch by launch, is read by
    ``reference_seal_backend_tpu_torch/utils/profile_operate.py``.)
 5. the ``kernels`` line (launch counts are those of the main-path run), the
@@ -69,6 +73,11 @@ MATMULT = (
     "ckks_matrix_multiply_row_latency",
 )
 ELEVEN = SIX + MATMULT + LOGREG
+BFV = tuple(name.replace("ckks_", "bfv_") for name in SIX + MATMULT)
+TWENTY = ELEVEN + BFV
+# NTT launches of one BEHZ multiply: both operands' inverse transforms, the
+# tensor product's forward and inverse over q u Bsk, the output's forward
+BEHZ_SWEEPS = 4
 LOGREG_BATCH = 100  # the batch behind the flexible Offline registration
 TIMED_SHAPE = (64, 7, 8192)
 BIG_LIMBS = 14
@@ -194,7 +203,14 @@ def phase_path_views(log, device):
             checked += 1
     if not all(views.values()):
         fail(f"path_views: the main path noted no view of a kernel: {views}")
+    # the BFV multiply's tensor product over q u Bsk: 4 + 6 limbs at N = 8192
+    behz = {name: sum(1 for (_, nm, *_), plan in log.items()
+                      if nm == name and plan.n == 8192 and len(plan.primes) == 10)
+            for name in views}
+    if not all(behz.values()):
+        fail(f"path_views: no 10-limb BEHZ view of a kernel: {behz}")
     emit({"phase": "path_views", "views": views, "noted": len(log),
+          "behz_10_limb_views": behz,
           "comparisons": checked,
           "leading_shapes": {n: sorted(v) for n, v in sorted(leads.items())},
           "max_abs_err": worst, "tolerance": 0,
@@ -381,9 +397,9 @@ def phase_main_path(device):
     from reference_seal_backend_tpu_torch.ops import ntt as ntt_mod
     from reference_seal_backend_tpu_torch.ops.cuda import ntt as ntt_cuda
 
-    # more than one timed iteration of each new descriptor, so that the
-    # launch counts of two iterations can be compared
-    per = {name: {"min_test_time_ms": 300.0} for name in MATMULT + LOGREG}
+    # more than one timed iteration of each descriptor of the later slices,
+    # so that the launch counts of two iterations can be compared
+    per = {name: {"min_test_time_ms": 300.0} for name in MATMULT + LOGREG + BFV}
     per[LOGREG[1]] = {"params": {"batch_size": LOGREG_BATCH},
                       "min_test_time_ms": 1500.0}
     with tempfile.TemporaryDirectory() as report_dir:
@@ -391,7 +407,7 @@ def phase_main_path(device):
         ntt_cuda.reset_launches()
         t0 = time.perf_counter()
         results = runner.run_all(
-            ELEVEN, seed=SEED, sample_size=8, report_dir=report_dir,
+            TWENTY, seed=SEED, sample_size=8, report_dir=report_dir,
             per_benchmark=per, device=device,
         )
         torch.cuda.synchronize()
@@ -399,7 +415,7 @@ def phase_main_path(device):
         launches = dict(ntt_cuda.launches)
         views, ntt_mod.call_log = ntt_mod.call_log, None
     failed = [r.name for r in results if not r.passed]
-    if failed or len(results) != len(ELEVEN):
+    if failed or len(results) != len(TWENTY):
         fail(f"main path: failed benchmarks {failed}: "
              f"{[r.error for r in results if r.error]}")
     for r in results:
@@ -407,12 +423,20 @@ def phase_main_path(device):
             fail(f"{r.name}: operate launched no NTT kernel")
         if not r.ntt_launches_steady:
             fail(f"{r.name}: operate's NTT launches differ between iterations")
-        if r.name in MATMULT + LOGREG and r.iterations < 2:
+        if r.name in MATMULT + LOGREG + BFV and r.iterations < 2:
             fail(f"{r.name}: one timed iteration only")
+        if "bfv_eltwise_mult" in r.name and r.ntt_launches_per_operate != BEHZ_SWEEPS:
+            fail(f"{r.name}: {r.ntt_launches_per_operate} NTT launches per "
+                 f"operate, not the BEHZ multiply's {BEHZ_SWEEPS}")
         want = {"poly_modulus_degree": "8192", "security": "128 bits"}
         if r.name in LOGREG:
             want.update(poly_modulus_degree="16384", key_switch_digit_group="2",
                         scale_bits="50")
+        if r.name in BFV:
+            want.update(key_switch_digit_group="2", plain_modulus="1032193",
+                        coeff_modulus_chain_bits="30|30|30|30")
+            if r.notes.get("noise_budget_bits", 0) <= 0:
+                fail(f"{r.name}: no noise budget left: {r.notes}")
         got = {k: r.description.get(k) for k in want}
         if got != want:
             fail(f"{r.name}: not at the registered parameters: {r.description}")
@@ -422,7 +446,7 @@ def phase_main_path(device):
     emit({
         "phase": "main_path", "failed": 0, "total": len(results),
         "wall_s": wall, "launches": launches,
-        "offline_samples": {"eltwise, dot product": [8, 8],
+        "offline_samples": {"eltwise, dot product (both schemes)": [8, 8],
                             "logistic regression": [1, 1, LOGREG_BATCH]},
         "benchmarks": {
             r.name: {

@@ -1,11 +1,10 @@
 """Engine: benchmark registry + factory of the port.
 
 Counterpart of ``reference_seal_backend_tpu/engine/registry.py``.  The
-port's engine registers the descriptors whose workloads are ported — the
-eleven CKKS ones so far: element-wise add/mult and dot product (Latency and
-Offline), logistic regression (Latency and Offline) and the three
-matrix-multiply packings — and grows to the reference's 20 with the BFV
-slice (ROADMAP.md Queue 1).  ``create_benchmark`` on anything else raises.
+port's engine registers all 20 of the reference's descriptors: under CKKS
+and BFV element-wise add/mult and dot product (Latency and Offline) and the
+three matrix-multiply packings, and CKKS logistic regression (Latency and
+Offline).
 """
 
 from __future__ import annotations
@@ -17,7 +16,6 @@ from reference_seal_backend_tpu_torch.engine.descriptor import (
     MATMULT_ROW,
     MATMULT_VAL,
     BenchmarkDescriptor,
-    Scheme,
     Workload,
     default_descriptors,
 )
@@ -44,7 +42,7 @@ def _matmult(descriptor: BenchmarkDescriptor, params, device) -> HEBenchmark:
     return _MATMULT[descriptor.other](descriptor, params, device)
 
 
-_PORTED = {
+_WORKLOADS = {
     Workload.ELTWISE_ADD: ElementWiseBenchmark,
     Workload.ELTWISE_MULT: ElementWiseBenchmark,
     Workload.DOT_PRODUCT: DotProductBenchmark,
@@ -53,18 +51,12 @@ _PORTED = {
 }
 
 
-def _is_ported(d: BenchmarkDescriptor) -> bool:
-    return d.scheme is Scheme.CKKS and d.workload in _PORTED
-
-
 class Engine:
-    """Registry of the ported benchmark descriptors, bound to a device."""
+    """Registry of the benchmark descriptors, bound to a device."""
 
     def __init__(self, device=None):
         self.device = pick_device(device)
-        self.descriptors: Tuple[BenchmarkDescriptor, ...] = tuple(
-            d for d in default_descriptors() if _is_ported(d)
-        )
+        self.descriptors: Tuple[BenchmarkDescriptor, ...] = default_descriptors()
         self._by_name: Dict[str, BenchmarkDescriptor] = {
             d.name: d for d in self.descriptors
         }
@@ -80,8 +72,4 @@ class Engine:
         descriptor: BenchmarkDescriptor,
         params: Optional[Dict[str, int]] = None,
     ) -> HEBenchmark:
-        if not _is_ported(descriptor):
-            raise NotImplementedError(
-                f"{descriptor.name} is not ported yet (ROADMAP.md Queue 1)"
-            )
-        return _PORTED[descriptor.workload](descriptor, params, self.device)
+        return _WORKLOADS[descriptor.workload](descriptor, params, self.device)

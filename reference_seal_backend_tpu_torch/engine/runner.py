@@ -10,11 +10,11 @@ line that CI greps for.
 * per-benchmark Latency timing (warmup + repeated operate) and Offline
   batch throughput, timed around the ``operate`` step only, ending in a
   device synchronisation;
-* validation: CKKS absolute tolerance (the decode path already applies the
-  5e-5 clamp);
+* validation: BFV exact equality, CKKS absolute tolerance (the decode
+  path already applies the 5e-5 clamp);
 * ``report.csv`` / ``descriptions.csv`` / ``summary.csv`` outputs;
 * the harness's YAML config tier: ``--config_file cfg.yaml --dump`` writes
-  the default configuration of the ported benchmarks, and a subsequent run
+  the default configuration of the 20 benchmarks, and a subsequent run
   with ``--config_file cfg.yaml`` executes it with per-benchmark
   parameter/sample-size overrides;
 * ``--device {cuda,cpu}``: the card by default; ``cuda`` without a card
@@ -75,7 +75,9 @@ class RunResult:
     # (earlier benchmarks' cached plans and tables).  Both 0 on the CPU.
     peak_device_bytes: int = 0
     held_before_bytes: int = 0
-    # the workload's own remarks on this run (HEBenchmark.run_notes)
+    # the workload's own remarks on this run (HEBenchmark.run_notes); under
+    # BFV also ``noise_budget_bits``: the invariant noise budget left in the
+    # result ciphertext (the least over its batch)
     notes: Dict[str, int] = field(default_factory=dict)
 
 
@@ -88,12 +90,17 @@ def gen_inputs(
 ):
     """Seeded random op parameters + a cleartext ground-truth function."""
     wl = desc.workload
-    if desc.scheme is not Scheme.CKKS:
-        raise KeyError(desc.scheme)
+    is_ckks = desc.scheme is Scheme.CKKS
     if wl in (Workload.ELTWISE_ADD, Workload.ELTWISE_MULT, Workload.DOT_PRODUCT):
         n = params["n"]
-        a = rng.uniform(-1, 1, (batch0, n))
-        b = rng.uniform(-1, 1, (batch1, n))
+        if is_ckks:
+            a = rng.uniform(-1, 1, (batch0, n))
+            b = rng.uniform(-1, 1, (batch1, n))
+        else:
+            # keep dot products within the plain modulus
+            hi = max(2, int((2 ** 19 / max(n, 1)) ** 0.5))
+            a = rng.integers(-hi, hi, (batch0, n))
+            b = rng.integers(-hi, hi, (batch1, n))
         if wl is Workload.ELTWISE_ADD:
             truth = lambda: [
                 a[i] + b[j] for i in range(batch0) for j in range(batch1)
@@ -111,8 +118,13 @@ def gen_inputs(
         return [a, b], truth
     if wl is Workload.MATRIX_MULTIPLY:
         r0, c0, c1 = params["rows_m0"], params["cols_m0"], params["cols_m1"]
-        m0 = rng.uniform(-1, 1, (r0, c0))
-        m1 = rng.uniform(-1, 1, (c0, c1))
+        if is_ckks:
+            m0 = rng.uniform(-1, 1, (r0, c0))
+            m1 = rng.uniform(-1, 1, (c0, c1))
+        else:
+            hi = max(2, int((2 ** 19 / max(c0, 1)) ** 0.5))
+            m0 = rng.integers(-hi, hi, (r0, c0))
+            m1 = rng.integers(-hi, hi, (c0, c1))
         return [m0, m1], lambda: [m0 @ m1]
     if wl is Workload.LOGREG_POLY_D3:
         n = params["n"]
@@ -210,14 +222,24 @@ def run_benchmark(
         wall_ms = elapsed / iters
         peak = torch.cuda.max_memory_allocated(engine.device) if on_card else 0
 
-        outs = bench.decode(bench.decrypt(bench.store(result)))
+        stored = bench.store(result)
+        notes = bench.run_notes(loaded)
+        if desc.scheme is Scheme.BFV:
+            notes["noise_budget_bits"] = bench.decryptor.noise_budget_bits(
+                stored.payload
+            )
+        outs = bench.decode(bench.decrypt(stored))
         want = truth_fn()
         passed = len(outs) == len(want)
         if passed:
             for got, exp in zip(outs, want):
                 got = np.asarray(got).reshape(-1)
                 exp = np.asarray(exp, dtype=np.float64).reshape(-1)
-                if not np.allclose(got, exp, atol=atol, rtol=0.0):
+                if desc.scheme is Scheme.BFV:
+                    ok = np.array_equal(got.astype(np.int64), exp.astype(np.int64))
+                else:
+                    ok = np.allclose(got, exp, atol=atol, rtol=0.0)
+                if not ok:
                     passed = False
                     break
         n_results = len(want)
@@ -228,7 +250,7 @@ def run_benchmark(
             ntt_launches_steady=len(per_iter) == 1,
             setup_s=setup_s, peak_device_bytes=peak,
             held_before_bytes=held_before,
-            notes=bench.run_notes(loaded),
+            notes=notes,
         )
     except Exception as e:  # noqa: BLE001 — harness reports, not raises
         return RunResult(name, False, 0.0, 0.0, 0, error=f"{type(e).__name__}: {e}")
@@ -324,7 +346,7 @@ FULL_DEFAULT_SAMPLE_SIZE = 5
 
 
 def dump_config(path: str) -> None:
-    """Write the default configuration of the ported descriptors as YAML."""
+    """Write the default configuration of the descriptors as YAML."""
     import yaml
 
     engine = Engine("cpu")  # descriptors only: builds nothing on a device
@@ -393,7 +415,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--random_seed", type=int, default=None)
     ap.add_argument("--benchmarks", nargs="*", default=None,
-                    help="benchmark names (default: every ported one)")
+                    help="benchmark names (default: all 20)")
     ap.add_argument("--default_sample_size", type=int, default=3,
                     help="offline batch size per parameter (CI uses 3)")
     ap.add_argument("--report_root_path", default=None)

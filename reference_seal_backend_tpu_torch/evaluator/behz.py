@@ -1,0 +1,307 @@
+"""BEHZ RNS BFV ct-ct multiplication (Bajard-Eynard-Hasan-Zucca 2016).
+
+Counterpart of ``reference_seal_backend_tpu/evaluator/behz.py``, giving the
+same integers at every stage.  An integer-only RNS multiply with the t/q
+scaling BFV requires, with no bignum arithmetic on the device — every step
+is a uint32 Montgomery/Shoup product or an NTT over two prime bases:
+
+  1. fast base conversion of the inputs q -> Bsk u {m_tilde}, the inputs
+     pre-multiplied by m_tilde
+  2. small Montgomery reduction mod m_tilde = 2**16 (cancels the
+     conversion's q-overflows; mod-2^16 arithmetic is a bit mask)
+  3. tensor product in both bases via NTT dyadic multiplies
+  4. scale by t and floor-divide by q in Bsk (fast_floor)
+  5. exact Shenoy-Kumaresan conversion Bsk -> q using m_sk
+
+Base sizes: q has k ~30-bit primes; B has k+1 (so B >> q, the headroom the
+S-K conversion needs with same-width primes); Bsk = B u {m_sk}.  The base
+extensions run on *normal-form* residues; every constant is a Shoup pair
+``(w, floor(w * 2**32 / p))``, so each step is one Shoup product, exact for
+any uint32 left operand (cross-base digits are used unreduced).
+Ciphertexts enter and leave in the at-rest NTT Montgomery form.
+
+The whole multiply is four NTT sweeps, each one call of the plan: the two
+operands' inverse transforms stacked on a leading axis, the forward and
+inverse transforms of the tensor product over q u Bsk on one limb axis
+(``BehzTables.mult_plan``), and the output's forward transform.  Between
+them the arithmetic is plain tensor code in the wide domain of
+``ops/modops.py`` (int64 values in [0, 2**32), masked where a uint32
+would wrap); the tables are kept wide on the device for that reason.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from reference_seal_backend_tpu_torch.ops import modops
+from reference_seal_backend_tpu_torch.ops import ntt as ntt_mod
+from reference_seal_backend_tpu_torch.schemes.core import Ciphertext
+from reference_seal_backend_tpu_torch.schemes.params import BfvContext
+
+_MASK16 = 0xFFFF
+_MTILDE = 1 << 16
+_HALF_MTILDE = 1 << 15
+
+
+class BehzTables:
+    """Host-precomputed constant tables for one BFV context, as int64
+    tensors (uint32 values) on the context's device.  Names and shapes are
+    the reference's: ``[k, 1]`` columns, ``[rows, cols, 1]`` tables, Shoup
+    pairs as ``(w, w_shoup)`` tuples, scalars as Python ints."""
+
+    def __init__(self, ctx: BfvContext):
+        self.ctx = ctx
+        dev = ctx.device
+        put = lambda a: torch.from_numpy(
+            np.asarray(a, dtype=np.uint32).astype(np.int64)
+        ).to(dev)
+
+        def pair(vals, primes):
+            """Shoup pair columns [(w_i, floor(w_i*2^32/p_i))] as [k, 1]."""
+            w = [v % p for v, p in zip(vals, primes)]
+            return (
+                put([[x] for x in w]),
+                put([[(x << 32) // p] for x, p in zip(w, primes)]),
+            )
+
+        def pair2(rows, col_primes):
+            """Shoup pairs of a [rows, cols, 1] table; modulus per column."""
+            w = [[v % p for v, p in zip(r, col_primes)] for r in rows]
+            s = [[(x << 32) // p for x, p in zip(r, col_primes)] for r in w]
+            return put(w)[..., None], put(s)[..., None]
+
+        k = ctx.L
+        q_primes = ctx.data_primes
+        aux = ctx.aux_primes  # k+1 primes, base B
+        bsk = ctx.bsk_primes  # aux + (m_sk,)
+        # The lazy-range steps below (raw Karatsuba sums into mont_mul,
+        # [0, 2p) conversion trees) assume every prime < 2**30.
+        if any(p >= 1 << 30 for p in q_primes + bsk):
+            raise ValueError("BEHZ tables require all primes < 2**30")
+        q, t, m_sk = ctx.q, ctx.t, ctx.m_sk
+        B = 1
+        for b in aux:
+            B *= b
+
+        qh = [q // qi for qi in q_primes]
+        qh_inv = [pow(qh[i] % q_primes[i], -1, q_primes[i]) for i in range(k)]
+
+        # step 1: y_i = x_i * (m_tilde * qhat_i^-1) mod q_i
+        self.mtilde_qhinv = pair((_MTILDE * v for v in qh_inv), q_primes)
+        # step 4: the xt scaling of prod_q folded into the floor-divide
+        # conversion's qhat_i^-1 pre-multiply (one constant, one sweep)
+        self.t_qhinv = pair((t * v for v in qh_inv), q_primes)
+        # qhat_i mod p_j for p_j in Bsk: [k, kb, 1] Shoup pairs
+        self.qh_mod_bsk = pair2([[qh[i] for _ in bsk] for i in range(k)], bsk)
+        self.qh_mod_mtilde = put([[qh[i] % _MTILDE] for i in range(k)])
+        self.neg_qinv_mtilde = (-pow(q % _MTILDE, -1, _MTILDE)) % _MTILDE
+        # step 2 constants per Bsk prime
+        self.mtilde_inv_bsk = pair((pow(_MTILDE, -1, pj) for pj in bsk), bsk)
+        self.q_mtilde_inv_bsk = pair(
+            (q * pow(_MTILDE, -1, pj) % pj for pj in bsk), bsk
+        )
+        self.q_mod_bsk = put([[q % pj] for pj in bsk])
+        # step 4: xt then floor-divide by q in Bsk
+        self.t_mod_bsk = pair((t for _ in bsk), bsk)
+        self.qinv_bsk = pair((pow(q % pj, -1, pj) for pj in bsk), bsk)
+        # step 5 (Shenoy-Kumaresan, base B -> q via m_sk)
+        ka = len(aux)
+        Bh = [B // bi for bi in aux]
+        self.Bh_inv = pair(
+            (pow(Bh[i] % aux[i], -1, aux[i]) for i in range(ka)), aux
+        )
+        self.Bh_mod_msk = pair((Bh[i] for i in range(ka)), (m_sk,) * ka)
+        self.Bh_mod_q = pair2(
+            [[Bh[i] for _ in q_primes] for i in range(ka)], q_primes
+        )
+        binv = pow(B % m_sk, -1, m_sk)
+        self.Binv_msk = (binv, (binv << 32) // m_sk)
+        self.B_mod_q = pair((B for _ in q_primes), q_primes)
+        self.msk_B_mod_q = put(
+            [[(m_sk % qj) * (B % qj) % qj] for qj in q_primes]
+        )
+        self.half_msk = m_sk // 2
+
+        w = modops.wide
+        self.q_p = w(ctx.p[:k])
+        self.q_pni = w(ctx.p_neg_inv[:k])
+        self.q_mu = w(ctx.mu[:k])
+        # R mod p pairs: enter Montgomery form with one Shoup product
+        self.q_r1 = pair(((1 << 32) for _ in q_primes), q_primes)
+        self.bsk_p = w(ctx.bsk_plan.p)
+        self.bsk_pni = w(ctx.bsk_plan.p_neg_inv)
+        self.bsk_r1 = pair(((1 << 32) for _ in bsk), bsk)
+        # The tensor base q u Bsk: one NTT plan over the stacked limb axis,
+        # so each transform of the tensor product is one sweep.  Per-limb
+        # twiddles and constants equal those of the separate plans.
+        self.mult_plan = ntt_mod.make_plan(ctx.n, q_primes + bsk, dev)
+        self.all_p = torch.cat([self.q_p, self.bsk_p], dim=0)
+        self.all_pni = torch.cat([self.q_pni, self.bsk_pni], dim=0)
+        self.all_r1 = (
+            torch.cat([self.q_r1[0], self.bsk_r1[0]], dim=0),
+            torch.cat([self.q_r1[1], self.bsk_r1[1]], dim=0),
+        )
+
+
+@functools.lru_cache(maxsize=None)
+def tables_for(ctx: BfvContext) -> BehzTables:
+    return BehzTables(ctx)
+
+
+# -- wide-domain steps (int64 tensors holding uint32 values) ----------------
+
+def _pairwise_sum(x: torch.Tensor, axis: int, add) -> torch.Tensor:
+    """Reduction tree along ``axis`` in the reference's pairing: the first
+    half plus the second, an odd last term carried, until one is left.  The
+    lazy sums' representatives depend on the pairing, so it is kept."""
+    n = x.shape[axis]
+    while n > 1:
+        half = n // 2
+        s = add(x.narrow(axis, 0, half), x.narrow(axis, half, half))
+        x = torch.cat([s, x.narrow(axis, 2 * half, n - 2 * half)], dim=axis)
+        n = half + (n - 2 * half)
+    return x.squeeze(axis)
+
+
+def _mod_sum_axis(x, p, axis):
+    """Modular sum along ``axis`` of canonical terms (keeps values < p)."""
+    return _pairwise_sum(x, axis, lambda a, b: modops.w_mod_add(a, b, p))
+
+
+def _mod_sum_axis_lazy(x, p, axis):
+    """Sum of lazy [0, 2p) terms along ``axis``; result in [0, 2p).  Valid
+    because every BEHZ prime is < 2**30, so a raw pair-add stays < 4p."""
+    p2 = p + p
+    return _pairwise_sum(x, axis, lambda a, b: modops.w_reduce_2p(a + b, p2))
+
+
+def _canon(x, p):
+    """[0, 2p) -> [0, p): one conditional subtract."""
+    return x - (x >= p) * p
+
+
+def _conv_to_bsk_mtilde(tb: BehzTables, x_q: torch.Tensor) -> torch.Tensor:
+    """x (normal coeff, [..., k, N] over q) -> x in Bsk, exactly (the
+    m_tilde Montgomery reduction cancels the conversion overflow)."""
+    y = modops.w_shoup_mul(x_q, *tb.mtilde_qhinv, tb.q_p)
+    # x*_j = sum_i y_i * (qhat_i mod p_j), p_j in Bsk — lazy terms and
+    # tree; xs stays in [0, 2p): its only consumer is a Shoup product
+    terms = modops.w_shoup_mul_lazy(
+        y[..., :, None, :], *tb.qh_mod_bsk, tb.bsk_p
+    )  # [..., k, kb, N]
+    xs = _mod_sum_axis_lazy(terms, tb.bsk_p, axis=-3)
+    # x*_mtilde = sum_i y_i * (qhat_i mod 2^16): only the low 16 bits count
+    xt = ((y & _MASK16) * tb.qh_mod_mtilde).sum(dim=-2) & _MASK16
+    r = (xt * tb.neg_qinv_mtilde) & _MASK16  # = -alpha (mod m_tilde)
+    flag = (r > _HALF_MTILDE)[..., None, :]
+    r = r[..., None, :]
+    out = modops.w_mod_add(
+        modops.w_shoup_mul(xs, *tb.mtilde_inv_bsk, tb.bsk_p),
+        modops.w_shoup_mul(r, *tb.q_mtilde_inv_bsk, tb.bsk_p),
+        tb.bsk_p,
+    )
+    return modops.w_mod_sub(out, flag * tb.q_mod_bsk, tb.bsk_p)
+
+
+def _fbc_q_to_bsk(tb: BehzTables, x_q: torch.Tensor, pair) -> torch.Tensor:
+    """Plain fast base conversion q -> Bsk (may carry +alpha*q, alpha < k,
+    absorbed as noise by the surrounding floor).  ``pair`` is the Shoup
+    constant of the qhat^-1 pre-multiply (``tb.t_qhinv``: the xt scaling
+    rides it)."""
+    y = modops.w_shoup_mul(x_q, *pair, tb.q_p)
+    terms = modops.w_shoup_mul_lazy(
+        y[..., :, None, :], *tb.qh_mod_bsk, tb.bsk_p
+    )
+    # canonical: the caller subtracts it
+    return _canon(_mod_sum_axis_lazy(terms, tb.bsk_p, axis=-3), tb.bsk_p)
+
+
+def _sk_to_q(tb: BehzTables, y_bsk: torch.Tensor) -> torch.Tensor:
+    """Exact Shenoy-Kumaresan conversion of (possibly centered-negative)
+    y [..., kb, N] over Bsk = B u {m_sk} into base q: [..., k, N]."""
+    ka = len(tb.ctx.aux_primes)
+    y_B = y_bsk[..., :ka, :]
+    y_msk = y_bsk[..., ka:, :]
+    msk_p = tb.bsk_p[ka:]
+    yp = modops.w_shoup_mul(y_B, *tb.Bh_inv, tb.bsk_p[:ka])
+    # alpha = (sum_i y'_i * Bhat_i - y) / B recovered mod m_sk, centered
+    terms_msk = modops.w_shoup_mul(yp, *tb.Bh_mod_msk, msk_p)
+    conv_msk = _mod_sum_axis(terms_msk[..., :, None, :], msk_p, axis=-3)
+    alpha = modops.w_shoup_mul(
+        modops.w_mod_sub(conv_msk, y_msk, msk_p), *tb.Binv_msk, msk_p
+    )  # [..., 1, N] in [0, m_sk)
+    flag = alpha > tb.half_msk
+    terms_q = modops.w_shoup_mul_lazy(
+        yp[..., :, None, :], *tb.Bh_mod_q, tb.q_p
+    )  # [..., ka, k, N]
+    s = _canon(_mod_sum_axis_lazy(terms_q, tb.q_p, axis=-3), tb.q_p)
+    alpha_term = modops.w_shoup_mul(
+        modops.w_barrett_reduce_u32(alpha, tb.q_p, tb.q_mu),
+        *tb.B_mod_q,
+        tb.q_p,
+    )
+    out = modops.w_mod_sub(s, alpha_term, tb.q_p)
+    return modops.w_mod_add(out, flag * tb.msk_B_mod_q, tb.q_p)
+
+
+def _tensor(x, y, p, pni):
+    """(x0,x1) (x) (y0,y1) dyadic; x Montgomery, y normal -> products
+    normal.  Karatsuba: 3 Montgomery products instead of 4; the raw sums
+    (< 2p) keep mont_mul exact since every prime is < 2**30."""
+    x0, x1 = x[..., 0, :, :], x[..., 1, :, :]
+    y0, y1 = y[..., 0, :, :], y[..., 1, :, :]
+    c0 = modops.w_mont_mul(x0, y0, p, pni)
+    c2 = modops.w_mont_mul(x1, y1, p, pni)
+    z = modops.w_mont_mul(x0 + x1, y0 + y1, p, pni)
+    c1 = modops.w_mod_sub(modops.w_mod_sub(z, c0, p), c2, p)
+    return torch.stack([c0, c1, c2], dim=-3)
+
+
+def bfv_multiply(ctx: BfvContext, a: Ciphertext, b: Ciphertext) -> Ciphertext:
+    """BFV ct-ct multiply (no relinearization): 3-component result.
+    Leading batch axes of ``a`` and ``b`` broadcast."""
+    tb = tables_for(ctx)
+    k = ctx.L
+    if a.size != 2 or b.size != 2:
+        raise NotImplementedError("bfv multiply expects size-2 inputs")
+    plan, mp = ctx.plan, tb.mult_plan
+    w = modops.wide
+
+    shape = torch.broadcast_shapes(a.data.shape, b.data.shape)
+    ab = torch.stack([a.data.expand(shape), b.data.expand(shape)], dim=0)
+    # [2ab, ..., 2, k, N] NTT Montgomery -> normal coefficients
+    ab_q = modops.w_mont_mul(w(plan.inv(ab, lo=0)), 1, tb.q_p, tb.q_pni)
+    ab_bsk = _conv_to_bsk_mtilde(tb, ab_q)  # [2ab, ..., 2, kb, N]
+
+    x_all = torch.cat([ab_q, ab_bsk], dim=-2)  # [2ab, ..., 2, k+kb, N]
+    # Operand a enters Montgomery form (xR) so that the dyadic Montgomery
+    # products land in normal form; operand b stays normal.
+    x_all = torch.cat(
+        [modops.w_shoup_mul(x_all[:1], *tb.all_r1, tb.all_p), x_all[1:]],
+        dim=0,
+    )
+    ntt_all = w(mp.fwd(modops.narrow(x_all), lo=0))
+    prod = w(mp.inv(
+        modops.narrow(_tensor(ntt_all[0], ntt_all[1], tb.all_p, tb.all_pni)),
+        lo=0,
+    ))  # [..., 3, k+kb, N] normal coefficients
+    prod_q = prod[..., :k, :]
+    prod_bsk = prod[..., k:, :]
+
+    # scale by t, floor-divide by q (in Bsk), convert exactly back to q
+    tc_bsk = modops.w_shoup_mul(prod_bsk, *tb.t_mod_bsk, tb.bsk_p)
+    y_bsk = modops.w_shoup_mul(
+        modops.w_mod_sub(
+            tc_bsk, _fbc_q_to_bsk(tb, prod_q, tb.t_qhinv), tb.bsk_p
+        ),
+        *tb.qinv_bsk,
+        tb.bsk_p,
+    )
+    out_q = _sk_to_q(tb, y_bsk)
+    out_ntt = plan.fwd(
+        modops.narrow(modops.w_shoup_mul(out_q, *tb.q_r1, tb.q_p)), lo=0
+    )
+    return Ciphertext(data=out_ntt, level=k, scale=1.0, is_ntt=True)

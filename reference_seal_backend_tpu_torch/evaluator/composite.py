@@ -4,7 +4,8 @@ Counterpart of ``reference_seal_backend_tpu/evaluator/composite.py``:
 
 * :func:`accumulate` — sum-across-slots, by one hoisted multi-rotation for
   small counts, a baby-step/giant-step pair of hoisted rotations for medium
-  counts, and a log2 rotate-add tree beyond.
+  counts, and a log2 rotate-add tree beyond (both schemes; BFV folds its
+  second batching row with one rotate_columns).
 * :func:`collapse` — gather slot 0 of k ciphertexts into one ciphertext by a
   one-hot mask and a log2(k) doubling merge: each round rotates half the
   survivors by a power-of-two step, one batched key switch per round.
@@ -77,19 +78,25 @@ def accumulate(ev: Evaluator, ct: Ciphertext, count: int) -> Ciphertext:
     slot j of the baby pass holds the window sum of ``baby`` slots;
     striding those windows by ``baby`` covers baby*giant >= count slots
     (the overshoot reads zero-padded slots).  Large counts: log2 rotate-add
-    tree.  Every caller reads slot 0 only.
+    tree.  Every caller reads slot 0 only.  BFV: rotations act per batching
+    row of N/2 slots, plus one rotate_columns fold (the conjugation key)
+    when ``count`` exceeds the row.
     """
     ctx = ev.ctx
-    row_count = min(count, ctx.slots)
+    row = ctx.n // 2 if ctx.scheme == "bfv" else ctx.slots
+    row_count = min(count, row)
     if _hoisted(row_count):
-        return ev.rotate_sum(ct, list(range(row_count)))
-    if 1 < row_count <= _BSGS_MAX_COUNT:
+        out = ev.rotate_sum(ct, list(range(row_count)))
+    elif 1 < row_count <= _BSGS_MAX_COUNT:
         baby, giant = _bsgs_split(row_count)
         out = ev.rotate_sum(ct, list(range(baby)))
-        return ev.rotate_sum(out, [baby * i for i in range(giant)])
-    out = ct
-    for step in rotations_for_accumulate(row_count, ctx.slots):
-        out = ev.add(out, ev.rotate(out, step))
+        out = ev.rotate_sum(out, [baby * i for i in range(giant)])
+    else:
+        out = ct
+        for step in rotations_for_accumulate(row_count, row):
+            out = ev.add(out, ev.rotate(out, step))
+    if ctx.scheme == "bfv" and count > row:
+        out = ev.add(out, ev.conjugate(out))
     return out
 
 

@@ -1,4 +1,4 @@
-"""Homomorphic evaluator for CKKS, in plain PyTorch over the NTT plan.
+"""Homomorphic evaluator for CKKS and BFV, in plain PyTorch over the NTT plan.
 
 Counterpart of ``reference_seal_backend_tpu/evaluator/eval.py``: add / sub /
 negate / multiply / multiply_plain / add_plain / relinearize /
@@ -20,7 +20,9 @@ switching over the special modulus P = prod(special_primes), with optional
     moddown  divide-and-round by P back to the live limbs
 
 The NTTs go through ``ctx.plan`` (the CUDA kernel on the card); everything
-between them is tensor arithmetic from ops/modops.py.
+between them is tensor arithmetic from ops/modops.py.  The BFV ct-ct
+multiply is the BEHZ pipeline of evaluator/behz.py; every other operation
+is shared by both schemes (BFV never rescales).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from reference_seal_backend_tpu_torch.evaluator import behz
 from reference_seal_backend_tpu_torch.ops import modops
 from reference_seal_backend_tpu_torch.schemes.core import Ciphertext, Plaintext
 from reference_seal_backend_tpu_torch.schemes.keys import KeySet, SwitchKey
@@ -107,13 +110,28 @@ class Evaluator:
     def negate(self, a: Ciphertext) -> Ciphertext:
         return replace(a, data=modops.mod_neg(a.data, self.ctx.p[: a.level]))
 
+    def _plain_term(self, pt: Plaintext, level: int) -> torch.Tensor:
+        """What ``add_plain`` / ``sub_plain`` add to c0: the plaintext
+        itself under CKKS; under BFV, whose plaintexts are encoded mod t
+        unscaled, the plaintext times Delta = floor(q/t)."""
+        if self.ctx.scheme != "bfv":
+            return pt.data
+        return modops.shoup_mul(
+            pt.data,
+            self.ctx.delta_plain[:level],
+            self.ctx.delta_shoup[:level],
+            self.ctx.p[:level],
+        )
+
     def add_plain(self, a: Ciphertext, pt: Plaintext) -> Ciphertext:
         if pt.level != a.level:
             raise ValueError("plaintext level mismatch")
         if abs(a.scale - pt.scale) > _SCALE_RTOL * abs(a.scale):
             raise ValueError(f"scale mismatch {a.scale} vs {pt.scale}")
         p = self.ctx.p[: a.level]
-        c0 = modops.mod_add(a.data[..., 0, :, :], pt.data, p)
+        c0 = modops.mod_add(
+            a.data[..., 0, :, :], self._plain_term(pt, a.level), p
+        )
         data = torch.cat(
             [c0[..., None, :, :], a.data[..., 1:, :, :]], dim=-3
         )
@@ -121,7 +139,9 @@ class Evaluator:
 
     def sub_plain(self, a: Ciphertext, pt: Plaintext) -> Ciphertext:
         p = self.ctx.p[: a.level]
-        c0 = modops.mod_sub(a.data[..., 0, :, :], pt.data, p)
+        c0 = modops.mod_sub(
+            a.data[..., 0, :, :], self._plain_term(pt, a.level), p
+        )
         data = torch.cat(
             [c0[..., None, :, :], a.data[..., 1:, :, :]], dim=-3
         )
@@ -139,15 +159,13 @@ class Evaluator:
 
     def multiply(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
         """ct-ct multiply WITHOUT relinearization (3-component result),
-        the bare multiply of the eltwise workload."""
+        the bare multiply of the eltwise workload.  Under BFV it is the
+        BEHZ multiply (evaluator/behz.py)."""
         _check_binop(a, b, check_scale=False)
         if a.size != 2 or b.size != 2:
             raise NotImplementedError("multiply expects size-2 inputs")
-        if self.ctx.scheme != "ckks":
-            raise NotImplementedError(
-                "BFV ct-ct multiply (BEHZ) is not ported yet: ROADMAP.md "
-                "Queue 1, the BFV slice (evaluator/behz.py)"
-            )
+        if self.ctx.scheme == "bfv":
+            return behz.bfv_multiply(self.ctx, a, b)
         l = a.level
         p, pni = self.ctx.consts(0, l)
         a0, a1 = a.data[..., 0, :, :], a.data[..., 1, :, :]

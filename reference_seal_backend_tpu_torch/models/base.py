@@ -10,7 +10,7 @@ benchmark owns its own context + keys.  The pipeline steps map as:
   store    device -> host
   decrypt  device arithmetic + host CRT compose
   decode   host: coefficients -> cleartext, with the 5e-5 epsilon clamp
-           for CKKS
+           for CKKS (BFV results are exact integers)
 
 Batch (Offline) semantics are broadcast batch axes inside one operate.
 """
@@ -31,10 +31,14 @@ from reference_seal_backend_tpu_torch.engine.descriptor import (
     Scheme,
 )
 from reference_seal_backend_tpu_torch.evaluator.eval import Evaluator
+from reference_seal_backend_tpu_torch.schemes import bfv as bfv_mod
 from reference_seal_backend_tpu_torch.schemes import ckks as ckks_mod
 from reference_seal_backend_tpu_torch.schemes import keys as keys_mod
 from reference_seal_backend_tpu_torch.schemes.core import Ciphertext, Plaintext
-from reference_seal_backend_tpu_torch.schemes.params import make_ckks_context
+from reference_seal_backend_tpu_torch.schemes.params import (
+    make_bfv_context,
+    make_ckks_context,
+)
 from reference_seal_backend_tpu_torch.utils.device import pick_device
 
 CKKS_EPS = 5e-5  # decode clamp, reference convention
@@ -81,10 +85,6 @@ class HEBenchmark(abc.ABC):
         params: Optional[Dict[str, int]] = None,
         device=None,
     ):
-        if descriptor.scheme is not Scheme.CKKS:
-            raise NotImplementedError(
-                "only CKKS workloads are ported; BFV is ROADMAP.md Queue 1"
-            )
         self.descriptor = descriptor
         self.device = pick_device(device)
         p = dict(descriptor.default_params)
@@ -106,14 +106,26 @@ class HEBenchmark(abc.ABC):
         self.num_threads = p["num_threads"] = nt
         # every context is built with 128-bit HE-standard enforcement
         # unless the caller explicitly opts out for small test configs
-        self.ctx = make_ckks_context(
-            poly_modulus_degree=p["poly_modulus_degree"],
-            mult_depth=p["mult_depth"],
-            scale_bits=p.get("scale_bits", 52),
-            sec_level=p.get("sec_level", 128),
-            device=self.device,
-        )
-        self.encoder = ckks_mod.CkksEncoder(self.ctx)
+        self.is_ckks = descriptor.scheme is Scheme.CKKS
+        if self.is_ckks:
+            self.ctx = make_ckks_context(
+                poly_modulus_degree=p["poly_modulus_degree"],
+                mult_depth=p["mult_depth"],
+                scale_bits=p.get("scale_bits", 52),
+                sec_level=p.get("sec_level", 128),
+                device=self.device,
+            )
+            self.encoder = ckks_mod.CkksEncoder(self.ctx)
+        else:
+            self.ctx = make_bfv_context(
+                poly_modulus_degree=p["poly_modulus_degree"],
+                mult_depth=p["mult_depth"],
+                plain_modulus_bits=p.get("plain_modulus_bits", 20),
+                n_data_primes=p.get("n_data_primes", 4),
+                sec_level=p.get("sec_level", 128),
+                device=self.device,
+            )
+            self.encoder = bfv_mod.BfvBatchEncoder(self.ctx)
         key_seed = p.get("key_seed", 1234)
         self.keys = keys_mod.keygen(
             self.ctx,
@@ -123,10 +135,16 @@ class HEBenchmark(abc.ABC):
         )
         # Encryption randomness is seeded from the benchmark's key seed so
         # runs are reproducible end to end.
-        self.encryptor = ckks_mod.CkksEncryptor(
-            self.ctx, self.keys, seed=key_seed
-        )
-        self.decryptor = ckks_mod.CkksDecryptor(self.ctx, self.keys)
+        if self.is_ckks:
+            self.encryptor = ckks_mod.CkksEncryptor(
+                self.ctx, self.keys, seed=key_seed
+            )
+            self.decryptor = ckks_mod.CkksDecryptor(self.ctx, self.keys)
+        else:
+            self.encryptor = bfv_mod.BfvEncryptor(
+                self.ctx, self.keys, seed=key_seed
+            )
+            self.decryptor = bfv_mod.BfvDecryptor(self.ctx, self.keys)
         self.ev = Evaluator(self.ctx, self.keys)
 
     # ------------------------------------------------------------------ #
@@ -166,10 +184,17 @@ class HEBenchmark(abc.ABC):
         """Rotation steps this workload needs Galois keys for."""
         return []
 
+    def needs_conjugation_key(self) -> bool:
+        """Does ``operate`` fold BFV's second batching row (Galois 2N-1)?"""
+        return False
+
     def _galois_elements(self) -> List[int]:
         n = self.params["poly_modulus_degree"]
         two_n = 2 * n
-        return [pow(5, s % (n // 2), two_n) for s in self.rotation_steps()]
+        elts = [pow(5, s % (n // 2), two_n) for s in self.rotation_steps()]
+        if self.needs_conjugation_key():
+            elts.append(two_n - 1)
+        return elts
 
     # -- pipeline ------------------------------------------------------- #
 
@@ -233,7 +258,10 @@ class HEBenchmark(abc.ABC):
                 f"{ctx.max_secure_bits} bits for N={ctx.n})"
             ),
         }
-        desc["scale_bits"] = str(self.params.get("scale_bits", 52))
+        if self.is_ckks:
+            desc["scale_bits"] = str(self.params.get("scale_bits", 52))
+        else:
+            desc["plain_modulus"] = str(ctx.t)
         desc["key_switch_digit_group"] = str(ctx.digit_group)
         desc["num_threads"] = str(self.num_threads)
         return desc
@@ -255,6 +283,12 @@ class HEBenchmark(abc.ABC):
         out[np.abs(out) < CKKS_EPS] = 0.0
         return out
 
+    def clean(self, arr) -> np.ndarray:
+        """Decoded values as the harness compares them: CKKS with the
+        epsilon clamp, BFV's exact integers as they are."""
+        arr = np.asarray(arr)
+        return self.clamp_ckks(arr) if self.is_ckks else arr
+
     # -- batched encode/encrypt/decrypt helpers --------------------------- #
 
     def encode_batch(self, samples: np.ndarray):
@@ -269,9 +303,9 @@ class HEBenchmark(abc.ABC):
         return self.encryptor.encrypt_pt(pt)
 
     def decrypt_each(self, ct, batch_shape: Tuple[int, ...]):
-        """Decrypt a ciphertext with leading batch axes; yields complex
-        slot arrays in flat order.  The whole batch decrypts in ONE
-        vectorized pass."""
+        """Decrypt a ciphertext with leading batch axes; yields slot arrays
+        in flat order (complex under CKKS, int64 under BFV).  The whole
+        batch decrypts in ONE vectorized pass."""
         data = ct.data
         flat = data.reshape((-1,) + tuple(data.shape[len(batch_shape):]))
         vals = self.decryptor.decrypt(replace(ct, data=flat))

@@ -1,7 +1,7 @@
-"""Dot product workload (CKKS Float64).
+"""Dot product workloads (CKKS Float64 / BFV Int64).
 
-Counterpart of ``reference_seal_backend_tpu/models/dot_product.py``, CKKS
-branch: per sample pair multiply -> relinearize -> rescale ->
+Counterpart of ``reference_seal_backend_tpu/models/dot_product.py``: per
+sample pair multiply -> relinearize -> (CKKS: rescale) ->
 sum-across-slots (:func:`evaluator.composite.accumulate`), result read from
 slot 0.  Offline batches are broadcast batch axes, so the entire
 batch0 x batch1 cross product shares each key switch's NTT launches.
@@ -32,8 +32,14 @@ class DotProductBenchmark(HEBenchmark):
             )
 
     def rotation_steps(self) -> List[int]:
+        # the CKKS slot count and the BFV batching row are both N/2
         slots = self.params["poly_modulus_degree"] // 2
         return composite.rotations_for_accumulate(self.n, slots)
+
+    def needs_conjugation_key(self) -> bool:
+        # BFV accumulate folds the second batching row via rotate_columns
+        # when the vector spills past one row
+        return not self.is_ckks and self.n > self.ctx.n // 2
 
     # -- pipeline --------------------------------------------------------- #
 
@@ -50,7 +56,8 @@ class DotProductBenchmark(HEBenchmark):
         a2 = replace(a, data=a.data[:, None])
         b2 = replace(b, data=b.data[None, :])
         prod = self.ev.relinearize(self.ev.multiply(a2, b2))
-        prod = self.ev.rescale_to_next(prod)
+        if self.is_ckks:
+            prod = self.ev.rescale_to_next(prod)
         return composite.accumulate(self.ev, prod, self.n)
 
     def operate(self, loaded: Handle) -> Handle:
@@ -72,4 +79,4 @@ class DotProductBenchmark(HEBenchmark):
     def decode(self, decrypted: Handle) -> List[np.ndarray]:
         self.check_handle(decrypted, "clear")
         # result lives in slot 0
-        return [np.asarray(self.clamp_ckks(v[:1])) for v in decrypted.payload]
+        return [self.clean(v[:1]) for v in decrypted.payload]

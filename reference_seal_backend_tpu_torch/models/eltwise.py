@@ -1,12 +1,13 @@
-"""Element-wise add/multiply workloads (CKKS Float64).
+"""Element-wise add/multiply workloads (CKKS Float64 / BFV Int64).
 
-Counterpart of ``reference_seal_backend_tpu/models/eltwise.py``, CKKS
-branch: one whole vector packed per ciphertext, Latency and Offline
-categories for both add and multiply.  The Offline batch0 x batch1 sample
+Counterpart of ``reference_seal_backend_tpu/models/eltwise.py``: one whole
+vector packed per ciphertext, Latency and Offline categories for both add
+and multiply, both schemes.  The Offline batch0 x batch1 sample
 cross product is two broadcast batch axes: ``[B0, 1, ...] op [1, B1, ...]``.
 
 Multiply is the *bare* ct-ct product (no relinearization): the decryptor
-handles 3-component ciphertexts.
+handles 3-component ciphertexts.  Under BFV it is the BEHZ multiply
+(evaluator/behz.py).
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from reference_seal_backend_tpu_torch.models.base import Handle, HEBenchmark
 
 
 class ElementWiseBenchmark(HEBenchmark):
-    """EltwiseAdd / EltwiseMult, both categories."""
+    """EltwiseAdd / EltwiseMult, both schemes, both categories."""
 
     tag_family = "eltwise"
     n_operands = 2
@@ -75,6 +76,4 @@ class ElementWiseBenchmark(HEBenchmark):
 
     def decode(self, decrypted: Handle) -> List[np.ndarray]:
         self.check_handle(decrypted, "clear")
-        return [
-            np.asarray(self.clamp_ckks(v[: self.n])) for v in decrypted.payload
-        ]
+        return [self.clean(v[: self.n]) for v in decrypted.payload]

@@ -1,4 +1,4 @@
-"""Matrix-multiply workloads: the three packing strategies (CKKS).
+"""Matrix-multiply workloads: the three packing strategies x two schemes.
 
 Counterpart of ``reference_seal_backend_tpu/models/matmult.py``
 (M0[r0×c0]·M1[c0×c1], Latency category), disambiguated by the descriptor's
@@ -6,22 +6,23 @@ algorithm-variant id ``descriptor.other``:
 
 * **MatMultVal** (0x00) — one matrix *row* per ciphertext, M1 transposed at
   encode; each output element is a row·row dot product: multiply → relin →
-  rescale → accumulate; result in slot 0 of each of r0·c1 ciphertexts.  The
+  (CKKS: rescale) → accumulate; result in slot 0 of each of r0·c1 ciphertexts.  The
   r0×c1 output grid is two broadcast batch axes.
 
 * **MatMultCipherBatchAxis** (0x01) — one scalar matrix *element* per
   ciphertext; broadcast elementwise multiply [r0,c0,1]×[1,c0,c1], a modular
   tree-sum over the inner batch axis in ciphertext space, then one batched
-  relinearize + rescale per output — no rotations, no Galois keys.
+  relinearize (+ CKKS rescale) per output — no rotations, no Galois keys.
 
 * **MatMultRow** (0x02) — spacer row packing: M0 row i is replicated
   across c0 blocks of stride ``spacers``, all of M1 packed into ONE
   ciphertext; per row one ct-ct multiply + relin, then the c0−1 rotations by
   multiples of ``spacers`` share ONE hoisted digit decomposition and ONE
-  mod-down (Evaluator.rotate_sum).
+  mod-down (Evaluator.rotate_sum).  BFV packs two M0 rows per ciphertext
+  in its two batching rows (an odd last row paired with zeros) and rotates
+  within rows, with M1 duplicated into both.
 
-The BFV twins of the three come with the BFV slice (ROADMAP.md Queue 1);
-the base class refuses a BFV descriptor.
+BFV never rescales; its results are exact integers.
 """
 
 from __future__ import annotations
@@ -72,7 +73,7 @@ class _MatMultBase(HEBenchmark):
 
     def decode(self, decrypted: Handle) -> List[np.ndarray]:
         self.check_handle(decrypted, "clear")
-        return [self.clamp_ckks(np.asarray(decrypted.payload))]
+        return [self.clean(decrypted.payload)]
 
 
 class MatMultValBenchmark(_MatMultBase):
@@ -88,8 +89,12 @@ class MatMultValBenchmark(_MatMultBase):
             )
 
     def rotation_steps(self) -> List[int]:
+        # the CKKS slot count and the BFV batching row are both N/2
         slots = self.params["poly_modulus_degree"] // 2
         return composite.rotations_for_accumulate(self.c0, slots)
+
+    def needs_conjugation_key(self) -> bool:
+        return not self.is_ckks and self.c0 > self.ctx.n // 2
 
     def encode(self, inputs: Sequence[np.ndarray]) -> Handle:
         m0 = np.asarray(inputs[0]).reshape(self.r0, self.c0)
@@ -102,7 +107,8 @@ class MatMultValBenchmark(_MatMultBase):
         a = replace(m0, data=m0.data[:, None])   # [r0, 1, …]
         b = replace(m1, data=m1.data[None, :])   # [1, c1, …]
         prod = self.ev.relinearize(self.ev.multiply(a, b))
-        prod = self.ev.rescale_to_next(prod)
+        if self.is_ckks:
+            prod = self.ev.rescale_to_next(prod)
         return composite.accumulate(self.ev, prod, self.c0)
 
 
@@ -126,11 +132,14 @@ class MatMultCipherBatchAxisBenchmark(_MatMultBase):
         b = replace(m1, data=b[None, :, :])        # [1,  c0, c1, …]
         prod = self.ev.multiply(a, b)               # size-3, [r0, c0, c1, …]
         # ciphertext-space accumulation over the inner dimension, then one
-        # batched relinearize + rescale per output.
+        # batched relinearize (+ rescale) per output.
         summed = replace(
             prod, data=_mod_sum(prod.data, self.ctx.p[: prod.level], axis=1)
         )
-        return self.ev.rescale_to_next(self.ev.relinearize(summed))
+        out = self.ev.relinearize(summed)
+        if self.is_ckks:
+            out = self.ev.rescale_to_next(out)
+        return out
 
 
 class MatMultRowBenchmark(_MatMultBase):
@@ -142,7 +151,7 @@ class MatMultRowBenchmark(_MatMultBase):
         p = dict(descriptor.default_params)
         if params:
             p.update(params)
-        row = p["poly_modulus_degree"] // 2  # CKKS slot count
+        row = p["poly_modulus_degree"] // 2  # CKKS slots = BFV row size
         self.blocks = 1 << math.ceil(math.log2(max(p["cols_m0"], 1)))
         self.spacers = row // self.blocks
         super().__init__(descriptor, params, device)
@@ -169,8 +178,17 @@ class MatMultRowBenchmark(_MatMultBase):
         m0 = np.asarray(inputs[0]).reshape(self.r0, self.c0)
         m1 = np.asarray(inputs[1]).reshape(self.c0, self.c1)
         rows = np.stack([self._pack(m0[i]) for i in range(self.r0)])
-        pt0 = self.encode_batch(rows)
-        pt1 = self.encode_batch(self._pack(m1)[None])
+        m1_vec = self._pack(m1)
+        if self.is_ckks:
+            pt0 = self.encode_batch(rows)
+            pt1 = self.encode_batch(m1_vec[None])
+        else:
+            # two M0 rows per ciphertext via BFV's two batching rows, an odd
+            # last row beside zeros; M1 duplicated into both rows
+            if self.r0 % 2:
+                rows = np.concatenate([rows, np.zeros_like(rows[:1])])
+            pt0 = self.encode_batch(rows.reshape(-1, 2 * rows.shape[1]))
+            pt1 = self.encode_batch(np.concatenate([m1_vec, m1_vec])[None])
         return self.handle("pt", (pt0, pt1))
 
     def _operate_impl(self, m0, m1):
@@ -183,6 +201,12 @@ class MatMultRowBenchmark(_MatMultBase):
         self.check_handle(stored, "result")
         ct_rows = stored.payload.data.shape[0]
         mat = np.zeros((self.r0, self.c1))
+        half = self.ctx.n // 2
         for i, v in enumerate(self.decrypt_each(stored.payload, (ct_rows,))):
-            mat[i] = np.real(v[: self.c1])
+            if self.is_ckks:
+                mat[i] = np.real(v[: self.c1])
+            else:
+                mat[2 * i] = v[: self.c1]
+                if 2 * i + 1 < self.r0:
+                    mat[2 * i + 1] = v[half : half + self.c1]
         return self.handle("clear", mat)

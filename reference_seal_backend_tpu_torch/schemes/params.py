@@ -1,7 +1,6 @@
-"""Encryption parameters and contexts for the CKKS scheme.
+"""Encryption parameters and contexts for the CKKS and BFV schemes.
 
-Counterpart of ``reference_seal_backend_tpu/schemes/params.py`` (CKKS part;
-the BFV context comes with the BFV slice):
+Counterpart of ``reference_seal_backend_tpu/schemes/params.py``:
 
 * RNS primes are all < 2**31 and NTT-friendly (p = 1 mod 2N) so residues
   fit the uint32 Montgomery core (ops/modops.py).  The chain is
@@ -92,6 +91,18 @@ class CkksParams:
     # admits the extra prime (and the chain has >= 4 data limbs),
     # else G=1.  Explicit G is honored as given (G special primes).
     digit_group: Optional[int] = None
+
+
+@dataclass(frozen=True)
+class BfvParams:
+    poly_modulus_degree: int = 8192
+    mult_depth: int = 2
+    plain_modulus_bits: int = 20
+    # data primes sized for noise budget; ~30-bit each.
+    n_data_primes: int = 4
+    sec_level: int = 128  # see CkksParams.sec_level
+    digit_group: Optional[int] = None  # see CkksParams.digit_group
+
 
 def _stack_consts(primes, key) -> np.ndarray:
     return np.array(
@@ -471,6 +482,56 @@ class CkksContext(Context):
         return self.L
 
 
+class BfvContext(Context):
+    def __init__(self, params: BfvParams, device=None):
+        n = params.poly_modulus_degree
+        two_n = 2 * n
+        t = primegen.gen_primes_near(
+            1, params.plain_modulus_bits, two_n
+        )[0]
+
+        # 30-bit cap: see CkksContext (Harvey lazy-reduction NTT path).
+        def gen(ns: int):
+            big = primegen.gen_ntt_primes(
+                ns + params.n_data_primes, 30, two_n, avoid=(t,)
+            )
+            return tuple(big[ns:]), tuple(big[:ns])
+
+        G, data, specials = _resolve_digit_group(
+            params.digit_group, params.sec_level, n, gen
+        )
+        super().__init__(
+            "bfv", n, data, specials, params.sec_level, G, device
+        )
+        self.params = params
+        self.t = t
+        q = self.q_at_level(self.L)
+        self.q = q
+        self.delta = q // t  # floor(q/t), the plaintext scaling factor
+        # Delta mod q_j as a Shoup pair, [L, 1] — scales encoded m.
+        self.delta_plain = self._put(
+            np.array([[self.delta % p] for p in data], dtype=np.uint32)
+        )
+        self.delta_shoup = self._put(
+            np.array(
+                [[((self.delta % p) << 32) // p] for p in data],
+                dtype=np.uint32,
+            )
+        )
+        self.slots = n
+        # Auxiliary BEHZ bases for ct-ct multiply: B = k+1 30-bit primes
+        # (one more than q so B >> q gives Shenoy-Kumaresan headroom with
+        # same-width primes), plus m_sk; all NTT-friendly, distinct from
+        # q u {special}.
+        aux = primegen.gen_ntt_primes(
+            self.L + 2, 30, two_n, avoid=self.primes + (t,)
+        )
+        self.aux_primes = tuple(aux[: self.L + 1])  # base B
+        self.m_sk = aux[self.L + 1]
+        self.bsk_primes = self.aux_primes + (self.m_sk,)
+        self.bsk_plan = ntt_mod.make_plan(n, self.bsk_primes, self.device)
+
+
 @functools.lru_cache(maxsize=None)
 def _make_ckks_context(params: CkksParams, device: torch.device) -> CkksContext:
     return CkksContext(params, device)
@@ -495,6 +556,35 @@ def make_ckks_context(
             scale_bits,
             rescale_group,
             bottom_primes,
+            sec_level,
+            digit_group,
+        ),
+        pick_device(device),
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def _make_bfv_context(params: BfvParams, device: torch.device) -> BfvContext:
+    return BfvContext(params, device)
+
+
+def make_bfv_context(
+    poly_modulus_degree: int = 8192,
+    mult_depth: int = 2,
+    plain_modulus_bits: int = 20,
+    n_data_primes: int = 4,
+    sec_level: int = 128,
+    digit_group: Optional[int] = None,
+    device=None,
+) -> BfvContext:
+    """Build (and cache per parameter set and device) a BFV context.
+    ``device`` defaults to the card; pass ``"cpu"`` to run on the CPU."""
+    return _make_bfv_context(
+        BfvParams(
+            poly_modulus_degree,
+            mult_depth,
+            plain_modulus_bits,
+            n_data_primes,
             sec_level,
             digit_group,
         ),

@@ -110,3 +110,27 @@ def test_runner_on_the_card(card):
     res = run_all(["ckks_dot_product_latency"], device="cuda", verbose=False,
                   params={"poly_modulus_degree": 2048, "sec_level": 0})
     assert res[0].passed and res[0].ntt_launches_per_operate > 0
+
+
+def test_bfv_multiply_on_the_card_equals_the_cpu(card):
+    """One BEHZ multiply at the registered N=8192 on the card: four NTT
+    launches (the four sweeps) and the CPU's integers."""
+    from reference_seal_backend_tpu_torch.evaluator import behz
+    from reference_seal_backend_tpu_torch.schemes.core import Ciphertext
+    from reference_seal_backend_tpu_torch.schemes.params import make_bfv_context
+
+    out = {}
+    for dev in ("cpu", "cuda"):
+        ctx = make_bfv_context(device=dev)
+        gen = torch.Generator().manual_seed(5)
+        cols = [torch.randint(0, p, (3, 2, 2, 8192), generator=gen,
+                              dtype=torch.int64) for p in ctx.data_primes]
+        data = tmod.narrow(torch.stack(cols, dim=-2)).to(dev)
+        a, b = (Ciphertext(data=d, level=ctx.L) for d in (data[:, :1], data[:1, 1:]))
+        before = dict(ntt_cuda.launches)
+        out[dev] = behz.bfv_multiply(ctx, a, b).data.cpu()
+        launched = {k: ntt_cuda.launches[k] - before[k] for k in before}
+        assert launched == ({"ntt_fwd": 0, "ntt_inv": 0} if dev == "cpu"
+                            else {"ntt_fwd": 2, "ntt_inv": 2})
+    assert out["cuda"].shape == (3, 1, 3, 4, 8192)
+    assert torch.equal(out["cuda"], out["cpu"])

@@ -72,7 +72,10 @@ def test_cuda_without_a_card_raises():
 
     from reference_seal_backend_tpu_torch.engine.registry import Engine
     from reference_seal_backend_tpu_torch.engine.runner import run_all
-    from reference_seal_backend_tpu_torch.schemes.params import make_ckks_context
+    from reference_seal_backend_tpu_torch.schemes.params import (
+        make_bfv_context,
+        make_ckks_context,
+    )
     from reference_seal_backend_tpu_torch.utils.device import pick_device
 
     if torch.cuda.is_available():
@@ -81,6 +84,7 @@ def test_cuda_without_a_card_raises():
         lambda: pick_device(),
         lambda: pick_device("cuda"),
         lambda: make_ckks_context(1024, sec_level=0),
+        lambda: make_bfv_context(1024, sec_level=0),
         lambda: Engine(),
         lambda: run_all(["ckks_eltwise_add_latency"], verbose=False),
     ):

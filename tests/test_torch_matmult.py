@@ -9,12 +9,9 @@ Cold wall time alone (empty JAX cache, this CPU): see CHANGES.md."""
 import numpy as np
 import pytest
 
-from reference_seal_backend_tpu.engine import runner as jrunner
-from reference_seal_backend_tpu.engine.registry import Engine as JEngine
-from reference_seal_backend_tpu_torch.engine import runner as trunner
 from reference_seal_backend_tpu_torch.engine.registry import Engine as TEngine
 
-from torch_port_util import assert_same_ct, check_ntt_views
+from torch_port_util import pipeline_both
 
 SEED = 1234
 NAMES = (
@@ -28,33 +25,9 @@ PARAMS = {"poly_modulus_degree": 1024, "sec_level": 0,
 
 @pytest.mark.parametrize("name", NAMES)
 def test_pipeline_bit_exact(name, monkeypatch):
-    jeng, teng = JEngine(), TEngine("cpu")
-    jb = jeng.create_benchmark(jeng.find(name), PARAMS)
-    tb = teng.create_benchmark(teng.find(name), PARAMS)
-    assert type(tb).__name__ == type(jb).__name__
-    assert tb.rotation_steps() == jb.rotation_steps()
-    assert tb.describe() == jb.describe()
-    jin, _ = jrunner._gen_inputs(jb.descriptor, jb.params, np.random.default_rng(SEED), 1, 1)
-    tin, truth = trunner.gen_inputs(tb.descriptor, tb.params, np.random.default_rng(SEED), 1, 1)
-    for x, y in zip(jin, tin):
-        np.testing.assert_array_equal(x, y)
-
-    jct = jb.load(jb.encrypt(jb.encode(jin)))
-    tct = tb.load(tb.encrypt(tb.encode(tin)))
-    assert tct.tag == jct.tag and tct.meta == jct.meta
-    for j, t in zip(jct.payload, tct.payload):
-        assert_same_ct(t, j)
-
-    jres = jb.block(jb.operate(jct))
-    seen = check_ntt_views(monkeypatch)
-    tres = tb.block(tb.operate(tct))
+    (tout,), (jout,), (want,), _, seen = pipeline_both(
+        name, PARAMS, 1, monkeypatch, seed=SEED)
     assert seen
-    assert_same_ct(tres.payload, jres.payload)
-    assert tres.tag == jres.tag and tres.meta == jres.meta
-
-    (jout,) = jb.decode(jb.decrypt(jb.store(jres)))
-    (tout,) = tb.decode(tb.decrypt(tb.store(tres)))
-    (want,) = truth()
     assert tout.shape == want.shape == (3, 2)
     np.testing.assert_allclose(tout, jout, atol=1e-9, rtol=0)
     np.testing.assert_allclose(tout, want, atol=5e-5, rtol=0)

@@ -1,10 +1,11 @@
 """The slice as a whole: the port's harness runner vs the JAX package's on
 the six CKKS eltwise and dot-product descriptors (eltwise at N=2048 because
 n=1000 needs >= 1000 slots, dot product at N=1024), ``sec_level=0``, seed
-1234, sample size 2, ``device="cpu"``; the registry, the runner's reports and
-the configuration tier over all eleven ported descriptors (logistic
-regression and matrix multiply are held against the JAX package in
-test_torch_logreg.py and test_torch_matmult.py).  ``operate``'s result ciphertext must be equal bit for bit
+1234, sample size 2, ``device="cpu"``; the registry (all 20 descriptors), the
+runner's reports over the eleven CKKS descriptors and the configuration tier
+over all 20 (logistic regression and matrix multiply are held against the JAX
+package in test_torch_logreg.py and test_torch_matmult.py, the nine BFV
+descriptors in the test_torch_bfv_*.py files).  ``operate``'s result ciphertext must be equal bit for bit
 (tolerance 0); decoded outputs equal to ``atol=1e-9, rtol=0`` (same numpy
 code over identical integers) and within the runner's 5e-5 of the truth."""
 
@@ -17,11 +18,9 @@ import pytest
 from reference_seal_backend_tpu.engine import runner as jrunner
 from reference_seal_backend_tpu.engine.registry import Engine as JEngine
 from reference_seal_backend_tpu_torch.engine import runner as trunner
-from reference_seal_backend_tpu_torch.engine.descriptor import Category
 from reference_seal_backend_tpu_torch.engine.registry import Engine as TEngine
-from reference_seal_backend_tpu_torch.ops import modops as tmod
 
-import torch_port_util  # noqa: F401  (one CPU thread for PyTorch)
+from torch_port_util import pipeline_both
 
 SIX = (
     "ckks_eltwise_add_latency",
@@ -51,58 +50,35 @@ def _params(name):
 
 
 def test_engine_registers_exactly_the_ported_six():
-    """Since the logistic-regression and matrix-multiply slice: the eleven
-    CKKS descriptors, every BFV one still refused."""
+    """Since the BFV slice: all 20 descriptors of the reference, the nine
+    BFV ones at N=8192 with a BFV context of the registered parameters."""
     eng = TEngine("cpu")
-    assert sorted(eng.names()) == sorted(ELEVEN)
     jeng = JEngine()
-    assert sorted(eng.names()) == sorted(n for n in jeng.names() if n.startswith("ckks_"))
-    for name in ELEVEN:  # same registered parameters as the reference
+    assert len(eng.names()) == 20
+    assert eng.names() == jeng.names()
+    assert set(ELEVEN) <= set(eng.names())
+    for name in eng.names():  # same registered parameters as the reference
         assert eng.find(name).default_params == jeng.find(name).default_params
         assert eng.find(name).default_params["poly_modulus_degree"] == (
             16384 if "logistic" in name else 8192
         )
         assert eng.find(name).other == jeng.find(name).other
-    for name in jeng.names():
-        if name.startswith("bfv_"):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                eng.create_benchmark(jeng.find(name))
+        assert eng.find(name).data_type == jeng.find(name).data_type
+    bfv = [n for n in eng.names() if n.startswith("bfv_")]
+    assert len(bfv) == 9
+    b = eng.create_benchmark(eng.find("bfv_eltwise_add_latency"))
+    assert b.ctx.scheme == "bfv" and b.describe()["security"] == "128 bits"
+    assert (b.ctx.n, b.ctx.L, b.ctx.digit_group) == (8192, 4, 2)
 
 
 @pytest.mark.parametrize("name", SIX)
-def test_pipeline_bit_exact(name):
-    jeng, teng = JEngine(), TEngine("cpu")
-    jdesc, tdesc = jeng.find(name), teng.find(name)
-    jb = jeng.create_benchmark(jdesc, _params(name))
-    tb = teng.create_benchmark(tdesc, _params(name))
-    b = SAMPLES if tdesc.category is Category.OFFLINE else 1
-    jin, jtruth = jrunner._gen_inputs(jdesc, jb.params, np.random.default_rng(SEED), b, b)
-    tin, ttruth = trunner.gen_inputs(tdesc, tb.params, np.random.default_rng(SEED), b, b)
-    for x, y in zip(jin, tin):
-        np.testing.assert_array_equal(x, y)
-
-    jct = jb.load(jb.encrypt(jb.encode(jin)))
-    tct = tb.load(tb.encrypt(tb.encode(tin)))
-    for x, y in zip(jct.payload, tct.payload):  # same keys, same randomness
-        np.testing.assert_array_equal(tmod.to_numpy(y.data), np.asarray(x.data))
-
-    jres = jb.block(jb.operate(jct))
-    tres = tb.block(tb.operate(tct))
-    np.testing.assert_array_equal(
-        tmod.to_numpy(tres.payload.data), np.asarray(jres.payload.data)
-    )
-    assert tres.payload.level == jres.payload.level
-    assert tres.payload.scale == jres.payload.scale
-    assert tres.meta == jres.meta and tres.tag == jres.tag
-
-    jout = jb.decode(jb.decrypt(jb.store(jres)))
-    tout = tb.decode(tb.decrypt(tb.store(tres)))
-    want = ttruth()
+def test_pipeline_bit_exact(name, monkeypatch):
+    b = SAMPLES if name.endswith("offline") else 1
+    tout, jout, want, _, _ = pipeline_both(name, _params(name), b, monkeypatch)
     assert len(tout) == len(jout) == len(want) == b * b
     for g, j, w in zip(tout, jout, want):
         np.testing.assert_allclose(g, j, atol=1e-9, rtol=0)
         np.testing.assert_allclose(g, np.asarray(w).reshape(-1), atol=5e-5, rtol=0)
-    assert tb.describe() == jb.describe()
 
 
 def test_run_all_failed_zero_and_same_reports(tmp_path, capsys):
@@ -174,7 +150,9 @@ def test_logreg_offline_batch_is_flexible():
 
 def test_cli_rejects_unknown_and_unported_names():
     with pytest.raises(SystemExit):
-        trunner.run_all(["bfv_eltwise_add_latency"], device="cpu")
+        trunner.run_all(["bfv_eltwise_sub_latency"], device="cpu")
+    with pytest.raises(SystemExit):
+        trunner.run_all(["ckks_logistic_regression_latency"], device="cpu")
 
 
 def test_failure_is_reported_not_raised():
@@ -192,7 +170,7 @@ def test_config_tier_roundtrip(tmp_path):
     path = str(tmp_path / "cfg.yaml")
     trunner.dump_config(path)
     names, per, seed, min_ms = trunner.load_config(path)
-    assert tuple(sorted(names)) == tuple(sorted(ELEVEN))
+    assert tuple(names) == tuple(TEngine("cpu").names()) and len(names) == 20
     assert per["ckks_logistic_regression_poly_d3_offline"]["params"][
         "poly_modulus_degree"] == 16384
     assert per["ckks_matrix_multiply_row_latency"]["params"]["cols_m0"] == 9

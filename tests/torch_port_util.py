@@ -27,6 +27,19 @@ def contexts(n, digit_group=None, mult_depth=2):
     )
 
 
+def bfv_contexts(n, digit_group=None):
+    """(JAX BFV context, port BFV context on the CPU) at ``sec_level=0``."""
+    kw = dict(poly_modulus_degree=n, sec_level=0, digit_group=digit_group)
+    return jparams.make_bfv_context(**kw), tparams.make_bfv_context(
+        device="cpu", **kw
+    )
+
+
+def wide_to_numpy(x) -> np.ndarray:
+    """Port wide-domain tensor (int64 holding uint32 values) -> uint32."""
+    return x.cpu().numpy().astype(np.uint32)
+
+
 def _sk_np(k):
     return {f: np.asarray(getattr(k, f)) for f in ("b", "a", "bs", "as_")}
 
@@ -89,3 +102,47 @@ def check_ntt_views(monkeypatch):
     monkeypatch.setattr(tntt.NttPlan, "fwd", fwd_held)
     monkeypatch.setattr(tntt.NttPlan, "inv", inv_held)
     return seen
+
+
+def pipeline_both(name, params, batch, monkeypatch, seed=1234):
+    """Run one descriptor through the JAX package's and the port's benchmark
+    (the port on the CPU) on the same seeded inputs and hold them equal at
+    every step: inputs, ciphertexts and ``operate``'s result (tolerance 0),
+    the port's transforms to the CUDA wrapper's view rules.  ``batch`` is
+    the sample count per operand.  Returns ``(port outputs, JAX outputs,
+    truth, port benchmark, shapes the port's operate handed to a transform)``."""
+    from reference_seal_backend_tpu.engine import runner as jrunner
+    from reference_seal_backend_tpu.engine.registry import Engine as JEngine
+    from reference_seal_backend_tpu_torch.engine import runner as trunner
+    from reference_seal_backend_tpu_torch.engine.registry import Engine as TEngine
+
+    jeng, teng = JEngine(), TEngine("cpu")
+    jb = jeng.create_benchmark(jeng.find(name), params)
+    tb = teng.create_benchmark(teng.find(name), params)
+    assert type(tb).__name__ == type(jb).__name__
+    assert tb.rotation_steps() == jb.rotation_steps()
+    assert tb._galois_elements() == jb._galois_elements()
+    assert tb.describe() == jb.describe()
+    jin, _ = jrunner._gen_inputs(
+        jb.descriptor, jb.params, np.random.default_rng(seed), batch, batch)
+    tin, truth = trunner.gen_inputs(
+        tb.descriptor, tb.params, np.random.default_rng(seed), batch, batch)
+    for x, y in zip(jin, tin):
+        np.testing.assert_array_equal(x, y)
+
+    jct = jb.load(jb.encrypt(jb.encode(jin)))
+    tct = tb.load(tb.encrypt(tb.encode(tin)))
+    assert tct.tag == jct.tag and tct.meta == jct.meta
+    for j, t in zip(jct.payload, tct.payload):  # same keys, same randomness
+        assert_same_ct(t, j)
+
+    jres = jb.block(jb.operate(jct))
+    seen = check_ntt_views(monkeypatch)
+    tres = tb.block(tb.operate(tct))
+    seen = list(seen)  # operate's views only, not decrypt's
+    assert_same_ct(tres.payload, jres.payload)
+    assert tres.tag == jres.tag and tres.meta == jres.meta
+
+    jout = jb.decode(jb.decrypt(jb.store(jres)))
+    tout = tb.decode(tb.decrypt(tb.store(tres)))
+    return tout, jout, truth(), tb, seen
