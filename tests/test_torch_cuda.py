@@ -134,3 +134,37 @@ def test_bfv_multiply_on_the_card_equals_the_cpu(card):
                             else {"ntt_fwd": 2, "ntt_inv": 2})
     assert out["cuda"].shape == (3, 1, 3, 4, 8192)
     assert torch.equal(out["cuda"], out["cpu"])
+
+
+def test_capi_library_on_the_card(card, monkeypatch):
+    """One dot product through the port's plugin library (loaded with
+    ``ctypes.CDLL`` into this interpreter) on the card: ``rsbtpu_operate``
+    launches the NTT kernels, the result matches the cleartext."""
+    import json
+
+    import numpy as np
+
+    from reference_seal_backend_tpu_torch.engine import capi, native
+
+    monkeypatch.setenv(capi.DEVICE_ENV, "cuda")
+    lib = native.load_library()
+    assert lib.rsbtpu_initialize() == 0
+    eid = lib.rsbtpu_engine_create()
+    assert eid > 0, native.take_string(lib, lib.rsbtpu_last_error())
+    params = {"poly_modulus_degree": 2048, "n": 64, "sec_level": 0}
+    bid = lib.rsbtpu_benchmark_create(eid, b"ckks_dot_product_latency",
+                                      json.dumps(params).encode())
+    assert bid > 0, native.take_string(lib, lib.rsbtpu_last_error())
+    rng = np.random.default_rng(11)
+    a, b = rng.uniform(-1, 1, (2, 1, 64))
+    h = lib.rsbtpu_encode(bid, json.dumps([a.tolist(), b.tolist()]).encode())
+    h = lib.rsbtpu_load(bid, lib.rsbtpu_encrypt(bid, h))
+    assert h > 0, native.take_string(lib, lib.rsbtpu_last_error())
+    before = sum(ntt_cuda.launches.values())
+    h = lib.rsbtpu_operate(bid, h)
+    assert h > 0 and sum(ntt_cuda.launches.values()) > before
+    h = lib.rsbtpu_decrypt(bid, lib.rsbtpu_store(bid, h))
+    out = json.loads(native.take_string(lib, lib.rsbtpu_decode(bid, h)))
+    np.testing.assert_allclose(out[0][0], float(a[0] @ b[0]), atol=5e-5, rtol=0)
+    lib.rsbtpu_benchmark_destroy(bid)
+    lib.rsbtpu_engine_destroy(eid)

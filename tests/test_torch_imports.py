@@ -127,3 +127,25 @@ def test_chip_smoke_fails_without_a_card():
     )
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_plugin_shim_embeds_the_port_not_the_jax_package():
+    """The port's plugin library imports the port's capi and exports the
+    one ABI: it includes ``native/include/rsb_tpu_backend.h`` unchanged."""
+    shim = (PKG / "csrc" / "capi_shim.cpp").read_text()
+    assert '"reference_seal_backend_tpu_torch.engine.capi"' in shim
+    assert "reference_seal_backend_tpu.engine.capi" not in shim
+    assert '#include "rsb_tpu_backend.h"' in shim
+    from reference_seal_backend_tpu_torch.engine import native
+
+    assert native.HEADER_DIR == ROOT / "native" / "include"
+    assert native.HARNESS_SOURCE == ROOT / "native" / "src" / "native_harness.cpp"
+    # importing builds nothing (asked in a fresh process: an earlier test in
+    # this one may have built the library)
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         "from reference_seal_backend_tpu_torch.engine import native; "
+         "assert native._built is None"],
+        cwd=str(ROOT), capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]
