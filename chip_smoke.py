@@ -44,7 +44,7 @@ Phases (each prints one JSON line; any failure ends the run non-zero):
    in the result.  (Where the device time of one
    ``operate`` goes, launch by launch, is read by
    ``reference_seal_backend_tpu_torch/utils/profile_operate.py``.)
-5. ``capi_path`` (after ``main_path``) the port through the C ABI of
+5. ``capi_path`` (after ``sp_path``) the port through the C ABI of
    ``native/include/rsb_tpu_backend.h``.  (a) The unchanged harness binary,
    built against the port's library, as a subprocess on the card: the 18
    descriptors other than logistic regression at N = 8192 (``--n 100``) and
@@ -64,9 +64,25 @@ Phases (each prints one JSON line; any failure ends the run non-zero):
    harness's own first call; the cold build of the BEHZ tables at N = 8192;
    ``operate`` timed through the ABI and from Python, and the crossing alone
    (``rsbtpu_benchmark_count``).
-6. the ``kernels`` line (``launches``: the main-path run; ``capi_path_launches``:
-   the ``rsbtpu_*`` calls of ``capi_path`` (b), counted from 0), the
-   card's name and power limit, and the result line.
+6. ``sp_path`` (after ``main_path``) the slot-parallel path
+   (``parallel/``): five descriptors at their registered parameters (CKKS
+   element-wise multiply and dot product at N = 8192, logistic regression
+   Latency at N = 16384 / depth 6 / G = 2, BFV element-wise multiply and dot
+   product at N = 8192), each through the seven steps flat and with
+   ``sp_shard`` 1 (a one-device mesh) and 4 (four cards where four are
+   visible, else four virtual devices of the card:
+   ``RSB_TORCH_VIRTUAL_DEVICES=4``, set for this phase only).  Every decode
+   must equal the flat run's.  Per run: ``operate_ms`` (median of 3 warm
+   calls), set-up seconds, peak device memory, NTT kernel launches per
+   ``operate`` and the collectives of one ``operate``
+   (``sp_eval.collective_stats``).  Then the sharded transforms against K1
+   (``epilogue`` True and False) and K2 on every shape the sp runs handed
+   ``parallel/sharded_ntt.py`` (noted in its ``call_log``: the data plans
+   and the BEHZ plan over q u Bsk), at sp = 1 and 4, tolerance 0.
+7. the ``kernels`` line (``launches``: the main-path run; ``sp_path_launches``:
+   the sp runs of ``sp_path``; ``capi_path_launches``: the ``rsbtpu_*``
+   calls of ``capi_path`` (b); each counted from 0), the card's name and
+   power limit, and the result line.
 """
 
 from __future__ import annotations
@@ -127,6 +143,17 @@ OK_LINE = re.compile(r"^\[ OK     \] (\S+) \(operate ([0-9.]+) ms\)$")
 ABI_IN_PROCESS = ("ckks_dot_product_latency", "bfv_eltwise_mult_latency")
 ABI_TIMED_ROUNDS = 7
 ABI_CROSSINGS = 2000
+# the sp path (parallel/): these descriptors at registered parameters, each
+# at every mesh size of SP_SIZES, SP_TIMED timed operates a run
+SP_PATH = (
+    "ckks_eltwise_mult_latency",
+    "ckks_dot_product_latency",
+    LOGREG[0],
+    "bfv_eltwise_mult_latency",
+    "bfv_dot_product_latency",
+)
+SP_SIZES = (1, 4)
+SP_TIMED = 3
 # NTT launches of one BEHZ multiply: both operands' inverse transforms, the
 # tensor product's forward and inverse over q u Bsk, the output's forward
 BEHZ_SWEEPS = 4
@@ -528,6 +555,231 @@ def phase_main_path(device):
     return launches, views, benchmarks
 
 
+def _seven_steps_timed(engine, desc, params, inputs, devices):
+    """One benchmark through the seven steps: set-up seconds, a warm-up
+    ``operate``, ``SP_TIMED`` timed ones (NTT kernel launches of each), the
+    decode, and the peak device memory on each of ``devices`` over it all
+    (with what the process held there before it began).  Returns the
+    benchmark, its loaded operands, the decode and the row."""
+    from reference_seal_backend_tpu_torch.ops.cuda import ntt as ntt_cuda
+
+    held = []
+    for dev in devices:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        held.append(torch.cuda.memory_allocated(dev))
+    t0 = time.perf_counter()
+    bench = engine.create_benchmark(desc, params)
+    loaded = bench.block(bench.load(bench.encrypt(bench.encode(inputs))))
+    setup_s = time.perf_counter() - t0
+    result = bench.block(bench.operate(loaded))
+    ms, launched = [], []
+    for _ in range(SP_TIMED):
+        before = sum(ntt_cuda.launches.values())
+        t = time.perf_counter()
+        result = bench.block(bench.operate(loaded))
+        ms.append((time.perf_counter() - t) * 1e3)
+        launched.append(sum(ntt_cuda.launches.values()) - before)
+    out = bench.decode(bench.decrypt(bench.store(result)))
+    row = {"operate_ms": statistics.median(ms), "operate_ms_each": ms,
+           "ntt_kernel_launches_per_operate": launched, "setup_s": setup_s,
+           "peak_device_bytes": [torch.cuda.max_memory_allocated(d) for d in devices],
+           "held_before_bytes": held}
+    return bench, loaded, out, row
+
+
+def sp_transform_checks(views, device):
+    """The sharded transforms (``parallel/sharded_ntt.py``, plain local
+    stages) against K1 and K2 on every shape ``views`` noted, at each mesh
+    size of ``SP_SIZES``: ``from_sp_layout(fwd(x))`` equal to ``plan.fwd``
+    for both epilogues, ``inv`` equal to ``plan.inv``; inputs in [0, 2p)
+    (the lazy range both take).  Fails on any difference."""
+    from reference_seal_backend_tpu_torch.parallel import mesh as mesh_mod
+    from reference_seal_backend_tpu_torch.parallel import sharded_ntt
+    from reference_seal_backend_tpu_torch.utils.device import mesh_devices
+    from reference_seal_backend_tpu_torch.utils.kernel_bench import random_residues
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 3)
+    meshes = {k: mesh_mod.make_mesh(k, ("sp",), shape=(k,),
+                                    devices=mesh_devices(device, k))
+              for k in SP_SIZES}
+    worst = {"ntt_fwd": 0, "ntt_inv": 0}
+    shapes, done, checked = {}, set(), 0
+    for (pid, name, shape, lo, _), plan in views.items():
+        if (pid, name, shape, lo) in done:
+            continue
+        done.add((pid, name, shape, lo))
+        key = f"N={plan.n} limbs={len(plan.primes)}"
+        shapes.setdefault(key, {"ntt_fwd": 0, "ntt_inv": 0})[name] += 1
+        lead, nl = shape[:-3], shape[-3]
+        dense = random_residues(gen, plan.primes, lead, lo, nl, plan.n,
+                                2 if plan.lazy else 1, device)
+        mat = dense.reshape(*lead, nl, plan.n1, plan.n2)
+        spec = (None,) * (len(shape) - 1) + ("sp",)
+        for mesh in meshes.values():
+            if name == "ntt_fwd":
+                xm = mesh_mod.ShardedTensor.distribute(mat, mesh, spec)
+                pairs = [(sharded_ntt.fwd(plan, xm, mesh, lo=lo, epilogue=e).gather()
+                          .transpose(-1, -2).reshape(dense.shape),
+                          plan.fwd(dense, lo=lo, epilogue=e)) for e in (True, False)]
+            else:
+                xt = mesh_mod.ShardedTensor.distribute(mat.transpose(-1, -2), mesh, spec)
+                pairs = [(sharded_ntt.inv(plan, xt, mesh, lo=lo).gather()
+                          .reshape(dense.shape), plan.inv(dense, lo=lo))]
+            for got, want in pairs:
+                err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+                worst[name] = max(worst[name], err)
+                checked += 1
+                if err:
+                    fail(f"sp_path: the sharded {name} disagrees with the kernel "
+                         f"(max_abs_err {err}) at N={plan.n} shape={shape} lo={lo}")
+    # the BFV multiply's tensor product over q u Bsk: 4 + 6 limbs
+    if not any(v["ntt_fwd"] and v["ntt_inv"]
+               for key, v in shapes.items() if key.endswith(" limbs=10")):
+        fail(f"sp_path: the BEHZ plan's transforms were not noted: {shapes}")
+    return {"shapes": shapes, "comparisons": checked, "mesh_sizes": list(SP_SIZES),
+            "max_abs_err": worst, "tolerance": 0,
+            "seconds": time.perf_counter() - t0}
+
+
+def sp_transform_cost(device):
+    """What one sharded transform costs against the kernel: at the shape of
+    a registered dot product's key-switch lift (36 polynomials of N = 8192:
+    ``[1, 1, 6, 6, 8192]``), the sharded ``fwd`` / ``inv`` at each mesh size
+    of ``SP_SIZES`` and K1 / K2 on the same data — host milliseconds per call
+    (median of 5, each ending in a synchronise), and from one profiled call
+    (``torch.profiler``) the CUDA kernels launched and their device time."""
+    from reference_seal_backend_tpu_torch.parallel import mesh as mesh_mod
+    from reference_seal_backend_tpu_torch.parallel import sharded_ntt
+    from reference_seal_backend_tpu_torch.schemes.params import make_ckks_context
+    from reference_seal_backend_tpu_torch.utils.device import mesh_devices
+    from reference_seal_backend_tpu_torch.utils.kernel_bench import random_residues
+
+    plan = make_ckks_context(8192, mult_depth=2, device=device).plan
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 4)
+    lead, nl = (1, 1, 6), 6
+    dense = random_residues(gen, plan.primes, lead, 0, nl, plan.n, 1, device)
+    mat = dense.reshape(*lead, nl, plan.n1, plan.n2)
+    spec = (None,) * (len(lead) + 2) + ("sp",)
+
+    def measure(call):
+        call()
+        torch.cuda.synchronize()
+        ms = []
+        for _ in range(5):
+            t = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            call()
+            torch.cuda.synchronize()
+        kernels = [(ev.count, ev.self_device_time_total) for ev in prof.key_averages()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA
+                   and (ev.self_device_time_total or 0) > 0]
+        return {"host_ms": statistics.median(ms),
+                "cuda_kernel_launches": sum(c for c, _ in kernels),
+                "device_busy_ms": sum(t for _, t in kernels) / 1e3}
+
+    rows = {"shape": [*lead, nl, plan.n],
+            "K1": measure(lambda: plan.fwd(dense)),
+            "K2": measure(lambda: plan.inv(dense))}
+    for k in SP_SIZES:
+        mesh = mesh_mod.make_mesh(k, ("sp",), shape=(k,), devices=mesh_devices(device, k))
+        xm = mesh_mod.ShardedTensor.distribute(mat, mesh, spec)
+        xt = mesh_mod.ShardedTensor.distribute(mat.transpose(-1, -2), mesh, spec)
+        rows[f"sharded_fwd_sp{k}"] = measure(lambda: sharded_ntt.fwd(plan, xm, mesh))
+        rows[f"sharded_inv_sp{k}"] = measure(lambda: sharded_ntt.inv(plan, xt, mesh))
+    return rows
+
+
+def phase_sp_path(device):
+    """``sp_path``: ``SP_PATH`` flat and at every mesh size of ``SP_SIZES``,
+    decodes equal to the flat run's, then :func:`sp_transform_checks`.  The
+    NTT launch counts are set to 0 just before each sp run (its seven steps
+    and its ``collective_stats`` call) and read just after; the flat runs'
+    launches are not among them.  Returns the sp runs' launches summed and
+    the transforms' worst errors."""
+    import numpy as np
+
+    from reference_seal_backend_tpu_torch.engine import runner
+    from reference_seal_backend_tpu_torch.engine.descriptor import Scheme
+    from reference_seal_backend_tpu_torch.engine.registry import Engine
+    from reference_seal_backend_tpu_torch.ops.cuda import ntt as ntt_cuda
+    from reference_seal_backend_tpu_torch.parallel import sharded_ntt, sp_eval
+    from reference_seal_backend_tpu_torch.utils.device import (
+        VIRTUAL_DEVICES_ENV,
+        mesh_devices,
+    )
+
+    t0 = time.perf_counter()
+    k_max = max(SP_SIZES)
+    virtual = torch.cuda.device_count() < k_max
+    saved = os.environ.get(VIRTUAL_DEVICES_ENV)
+    if virtual:
+        os.environ[VIRTUAL_DEVICES_ENV] = str(k_max)
+    try:
+        engine = Engine(device)
+        benchmarks, mesh_of = {}, {}
+        launches = {name: 0 for name in ntt_cuda.launches}
+        sharded_ntt.call_log = {}
+        for name in SP_PATH:
+            desc = engine.find(name)
+            inputs, truth = runner.gen_inputs(
+                desc, dict(desc.default_params), np.random.default_rng(SEED), 1, 1)
+            _, _, flat_out, flat_row = _seven_steps_timed(
+                engine, desc, None, inputs, [device])
+            tol = 0.0 if desc.scheme is Scheme.BFV else runner.CKKS_ATOL[desc.workload]
+            err = cleartext_error(desc, flat_out, truth())
+            if err > tol:
+                fail(f"sp_path: {name} flat: result off the cleartext by {err}")
+            rows = {"flat": dict(flat_row, max_abs_err_vs_cleartext=err)}
+            for k in SP_SIZES:
+                torch.cuda.synchronize()
+                ntt_cuda.reset_launches()
+                bench, loaded, out, row = _seven_steps_timed(
+                    engine, desc, {"sp_shard": k}, inputs,
+                    list(dict.fromkeys(mesh_devices(device, k))))
+                if not isinstance(bench.ev, sp_eval.SpEvaluator) or \
+                        bench.describe().get("sp_shard") != str(k):
+                    fail(f"sp_path: {name} at sp_shard {k} did not run sharded")
+                if len(out) != len(flat_out) or not all(
+                        np.array_equal(a, b) for a, b in zip(out, flat_out)):
+                    fail(f"sp_path: {name} at sp = {k}: the decode differs from "
+                         f"the flat run's")
+                row["collectives_per_operate"] = sp_eval.collective_stats(
+                    lambda: bench.block(bench.operate(loaded)))
+                torch.cuda.synchronize()
+                row["ntt_kernel_launches"] = dict(ntt_cuda.launches)
+                for kname, n in ntt_cuda.launches.items():
+                    launches[kname] += n
+                row["equal_to_flat"] = True
+                rows[f"sp{k}"] = row
+                mesh_of[k] = [str(d) for d in bench.ev.mesh.devices.flat]
+            benchmarks[name] = rows
+        views, sharded_ntt.call_log = sharded_ntt.call_log, None
+        transforms = sp_transform_checks(views, device)
+        cost = sp_transform_cost(device)
+    finally:
+        if saved is None:
+            os.environ.pop(VIRTUAL_DEVICES_ENV, None)
+        else:
+            os.environ[VIRTUAL_DEVICES_ENV] = saved
+    for name, count in launches.items():
+        if count <= 0:
+            fail(f"sp_path never launched {name}")
+    emit({"phase": "sp_path", "virtual": virtual,
+          "visible_cards": torch.cuda.device_count(), "devices": mesh_of,
+          "benchmarks": benchmarks, "launches": launches,
+          "transforms_vs_kernels": transforms, "one_transform": cost,
+          "seconds": time.perf_counter() - t0})
+    return launches, transforms["max_abs_err"]
+
+
 def harness_sizes():
     """The sizes of ``native_harness.cpp``'s ``make_workload``, read from its
     source: the security rule, Offline sample counts, matrix dimensions,
@@ -884,10 +1136,11 @@ def main() -> int:
 
     worst = phase_kernels(device)
     launches, views, main_benchmarks = phase_main_path(device)
+    sp_launches, sp_worst = phase_sp_path(device)
     capi_launches, capi_views = phase_capi_path(built, device, main_benchmarks)
     on_path = phase_path_views({"main_path": views, "capi_path": capi_views},
                                device)
-    worst = {k: max(worst[k], on_path[k]) for k in worst}
+    worst = {k: max(worst[k], on_path[k], sp_worst[k]) for k in worst}
     timed = phase_kernel_times(device)
 
     replaces = {
@@ -901,6 +1154,7 @@ def main() -> int:
             "source": "reference_seal_backend_tpu_torch/csrc/ntt.cu",
             "replaces": replaces[name],
             "launches": launches[name],
+            "sp_path_launches": sp_launches[name],
             "capi_path_launches": capi_launches[name],
             "max_abs_err": worst[name],
             "ms": timed[name]["ms"],

@@ -18,7 +18,9 @@ line that CI greps for.
   with ``--config_file cfg.yaml`` executes it with per-benchmark
   parameter/sample-size overrides;
 * ``--device {cuda,cpu}``: the card by default; ``cuda`` without a card
-  raises, nothing falls back to the CPU by itself.
+  raises, nothing falls back to the CPU by itself;
+* ``--sp_shard k``: the slot-parallel path over a k-device mesh
+  (``models/base.py``).
 
 Usage:
     python -m reference_seal_backend_tpu_torch.engine.runner \
@@ -427,6 +429,12 @@ def main(argv=None):
     ap.add_argument("--min_test_time_ms", type=float, default=None,
                     help="minimum timed-loop duration for the operate "
                     "step (the harness's min_test_time_ms)")
+    ap.add_argument("--sp_shard", type=int, default=0,
+                    help="run every benchmark slot-parallel: each "
+                    "polynomial's coefficient axis sharded over this many "
+                    "devices (an sp mesh); more than the visible cards "
+                    "raises unless RSB_TORCH_VIRTUAL_DEVICES=K allows K "
+                    "shards on one card (--device cpu: any count)")
     ap.add_argument("--device", default=DEFAULT_DEVICE,
                     choices=("cuda", "cpu"),
                     help="where contexts, keys and operate live; cuda "
@@ -450,6 +458,8 @@ def main(argv=None):
         params["poly_modulus_degree"] = args.poly_modulus_degree
     if args.sec_level != 128:
         params["sec_level"] = args.sec_level
+    if args.sp_shard:
+        params["sp_shard"] = args.sp_shard
 
     names = args.benchmarks
     per_benchmark = None

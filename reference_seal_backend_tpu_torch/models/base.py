@@ -13,6 +13,13 @@ benchmark owns its own context + keys.  The pipeline steps map as:
            for CKKS (BFV results are exact integers)
 
 Batch (Offline) semantics are broadcast batch axes inside one operate.
+
+``sp_shard: k`` in the params runs the benchmark slot-parallel: every
+polynomial's coefficient axis sharded over a k-device ``("sp",)`` mesh
+(``parallel/sp_eval.py``; the devices from ``utils/device.py:mesh_devices``).
+``load`` shards the ciphertexts, ``store`` gathers them back, and the
+workload's ``operate`` graph is unchanged: the ``SpEvaluator`` stands in as
+``self.ev``.
 """
 
 from __future__ import annotations
@@ -31,6 +38,8 @@ from reference_seal_backend_tpu_torch.engine.descriptor import (
     Scheme,
 )
 from reference_seal_backend_tpu_torch.evaluator.eval import Evaluator
+from reference_seal_backend_tpu_torch.parallel import mesh as mesh_mod
+from reference_seal_backend_tpu_torch.parallel import sp_eval
 from reference_seal_backend_tpu_torch.schemes import bfv as bfv_mod
 from reference_seal_backend_tpu_torch.schemes import ckks as ckks_mod
 from reference_seal_backend_tpu_torch.schemes import keys as keys_mod
@@ -39,7 +48,7 @@ from reference_seal_backend_tpu_torch.schemes.params import (
     make_bfv_context,
     make_ckks_context,
 )
-from reference_seal_backend_tpu_torch.utils.device import pick_device
+from reference_seal_backend_tpu_torch.utils.device import mesh_devices, pick_device
 
 CKKS_EPS = 5e-5  # decode clamp, reference convention
 
@@ -60,13 +69,13 @@ class InvalidHandleError(TypeError):
     """A pipeline step received a handle of the wrong type or stage."""
 
 
-def _map_payload(fn, payload):
-    """Apply ``fn`` to every Ciphertext/Plaintext in a (nested tuple/list)
-    payload; anything else passes through."""
-    if isinstance(payload, (Ciphertext, Plaintext)):
+def _map_payload(fn, payload, types=(Ciphertext, Plaintext)):
+    """Apply ``fn`` to every Ciphertext/Plaintext (or other ``types``) in a
+    (nested tuple/list) payload; anything else passes through."""
+    if isinstance(payload, types):
         return fn(payload)
     if isinstance(payload, (tuple, list)):
-        return type(payload)(_map_payload(fn, x) for x in payload)
+        return type(payload)(_map_payload(fn, x, types) for x in payload)
     return payload
 
 
@@ -146,6 +155,12 @@ class HEBenchmark(abc.ABC):
             )
             self.decryptor = bfv_mod.BfvDecryptor(self.ctx, self.keys)
         self.ev = Evaluator(self.ctx, self.keys)
+        self.sp_shard = int(p.get("sp_shard", 0) or 0)
+        if self.sp_shard:
+            k = self.sp_shard
+            sp_mesh = mesh_mod.make_mesh(
+                k, ("sp",), shape=(k,), devices=mesh_devices(self.device, k))
+            self.ev = sp_eval.SpEvaluator(self.ctx, self.keys, sp_mesh)
 
     # ------------------------------------------------------------------ #
 
@@ -207,9 +222,17 @@ class HEBenchmark(abc.ABC):
         ...
 
     def load(self, encrypted: Handle) -> Handle:
-        """Host -> device placement of every array in the payload."""
+        """Host -> device placement of every array in the payload; under
+        ``sp_shard`` ciphertexts are sharded over the mesh (plaintexts stay
+        flat: the SpEvaluator relayouts them where it reads them)."""
         self.check_handle(encrypted, "ct")
-        payload = _map_payload(lambda x: x.to(self.device), encrypted.payload)
+
+        def place(x):
+            if self.sp_shard and isinstance(x, Ciphertext):
+                return self.ev.shard(x)
+            return x.to(self.device)
+
+        payload = _map_payload(place, encrypted.payload)
         return Handle(tag=encrypted.tag, payload=payload, meta=encrypted.meta)
 
     @abc.abstractmethod
@@ -219,7 +242,10 @@ class HEBenchmark(abc.ABC):
     def store(self, result: Handle) -> Handle:
         """Device -> host readback of result arrays."""
         self.check_handle(result, "result")
-        payload = _map_payload(lambda x: x.to("cpu"), result.payload)
+        payload = result.payload
+        if self.sp_shard:
+            payload = _map_payload(self.ev.unshard, payload, (sp_eval.SpCiphertext,))
+        payload = _map_payload(lambda x: x.to("cpu"), payload)
         return Handle(tag=result.tag, payload=payload, meta=result.meta)
 
     @abc.abstractmethod
@@ -264,6 +290,8 @@ class HEBenchmark(abc.ABC):
             desc["plain_modulus"] = str(ctx.t)
         desc["key_switch_digit_group"] = str(ctx.digit_group)
         desc["num_threads"] = str(self.num_threads)
+        if self.sp_shard:
+            desc["sp_shard"] = str(self.sp_shard)
         return desc
 
     def run_notes(self, loaded: Handle) -> Dict[str, int]:
@@ -272,10 +300,13 @@ class HEBenchmark(abc.ABC):
         return {}
 
     def block(self, handle: Handle) -> Handle:
-        """Block until device work queued so far has finished (used by the
-        runner to time operate honestly)."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        """Block until device work queued so far has finished, on every
+        device of the sp mesh too (used by the runner to time operate
+        honestly)."""
+        devices = self.ev.mesh.unique_devices() if self.sp_shard else [self.device]
+        for dev in devices:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
         return handle
 
     def clamp_ckks(self, arr: np.ndarray) -> np.ndarray:

@@ -13,13 +13,23 @@ Gentleman-Sande, exactly undoing the forward stages, with the final
 ``N^-1`` scale folded into one Shoup multiply.  Galois automorphisms are
 index permutations in this order (:meth:`NttPlan.galois_perm`).
 
-The reference's four-step ``[n1, 128]`` layout and its lane-expanded
-twiddle planes are layout devices of its target; they change no integer.
-Here the tables are the compact ``[L, N]`` bit-reversed root tables, the
-plain version is the flat stage loop, and on a CUDA tensor the transform
-is the hand-written kernel of ``ops/cuda/ntt.py`` — the only way the NTT
-runs on the card.  The plain version runs for CPU tensors, and wherever a
-caller names it (:meth:`NttPlan.fwd_plain`) to hold the kernel against it.
+The tables are the compact ``[L, N]`` bit-reversed root tables, the plain
+version is the flat stage loop, and on a CUDA tensor the transform is the
+hand-written kernel of ``ops/cuda/ntt.py`` — the only way the NTT runs on
+the card.  The plain version runs for CPU tensors, and wherever a caller
+names it (:meth:`NttPlan.fwd_plain`) to hold the kernel against it.
+
+Four-step form (N >= 256, plain only).  The slot-parallel path
+(``parallel/sharded_ntt.py``) views the N coefficients as an ``[n1, n2]``
+matrix, ``n2 = 128``: stages ``s < s1 = log2 n1`` pair whole rows
+(:func:`phase1`), one transpose, and the later stages pair rows of the
+transposed ``[n2, n1]`` matrix (:func:`phase2`) — the same butterflies on
+the same inputs as the flat loop, in the layout whose one transpose
+becomes the sharded transform's all-to-all.  Its per-stage twiddle tables
+(:meth:`NttPlan.four_step`) are gathered from the compact ones on first
+use, per device, so a plan that never meets the sp path holds none.  The
+reference's lane-expanded Pallas planes are a layout device of its target
+and are not ported.
 
 The kernel does not walk the stages one by one: it groups them into
 passes of up to :data:`MAX_RADIX_LOG` stages that one thread runs on
@@ -157,6 +167,35 @@ class NttPlan:
     _galois_cache: Dict[int, torch.Tensor] = field(
         default_factory=dict, hash=False, compare=False
     )
+    _four_step_cache: Dict[torch.device, "FourStepTables"] = field(
+        default_factory=dict, hash=False, compare=False
+    )
+
+    # -- four-step matrix layout (n2 = 0 when N < 256) ------------------------
+
+    @property
+    def n2(self) -> int:
+        return 128 if self.n >= 256 else 0
+
+    @property
+    def n1(self) -> int:
+        return self.n // self.n2 if self.n2 else 0
+
+    @property
+    def s1(self) -> int:
+        """Number of leading stages run in the row-major ``[n1, n2]`` view."""
+        return self.n1.bit_length() - 1 if self.n2 else 0
+
+    def four_step(self, device=None) -> "FourStepTables":
+        """The four-step form's per-stage twiddle tables on ``device`` (the
+        plan's own by default), built from the compact root tables on the
+        host at first use and kept per device."""
+        dev = self.device if device is None else torch.device(device)
+        if not self.n2:
+            raise ValueError("the four-step layout needs N >= 256")
+        if dev not in self._four_step_cache:
+            self._four_step_cache[dev] = _four_step_tables(self, dev)
+        return self._four_step_cache[dev]
 
     # -- transforms ---------------------------------------------------------
 
@@ -364,6 +403,144 @@ def _shoup_np(w: np.ndarray, primes) -> np.ndarray:
     """``floor(w * 2**32 / p)`` elementwise; ``w`` indexed ``[L, ...]``."""
     p = np.array(primes, dtype=np.uint64).reshape((-1,) + (1,) * (w.ndim - 1))
     return ((w.astype(np.uint64) << 32) // p).astype(np.uint32)
+
+
+# -- the four-step form (plain PyTorch, wide int64 values) -------------------
+
+@dataclass(frozen=True)
+class FourStepTables:
+    """Per-stage twiddles of the four-step layout, as ``(w, w_shoup)`` wide
+    pairs.  Phase 1, stage ``s < s1``: ``[L, 2**s]``, the roots
+    ``[2**s, 2**(s+1))``.  Phase 2, stage ``s >= s1`` (entry ``s - s1``):
+    ``[L, m2, 1, n1]`` over the transposed ``[n2, n1]`` view, plane
+    ``(j2, r)`` = root ``2**s + r*m2 + j2`` with ``m2 = n2 / (2t)``.
+    Beside them, on the same device, the plan's per-limb ``[L, 1]`` columns
+    the phases read: ``p`` and the Shoup pair of ``N^-1``."""
+
+    fwd_tw: Tuple[Tuple[torch.Tensor, torch.Tensor], ...]
+    inv_tw: Tuple[Tuple[torch.Tensor, torch.Tensor], ...]
+    fwd_tw2: Tuple[Tuple[torch.Tensor, torch.Tensor], ...]
+    inv_tw2: Tuple[Tuple[torch.Tensor, torch.Tensor], ...]
+    p: torch.Tensor
+    n_inv: Tuple[torch.Tensor, torch.Tensor]
+
+
+def _four_step_tables(plan: "NttPlan", device: torch.device) -> FourStepTables:
+    n, n1, n2, s1 = plan.n, plan.n1, plan.n2, plan.s1
+    host = {k: modops.to_numpy(getattr(plan, k)).astype(np.int64)
+            for k in ("roots", "roots_shoup", "iroots", "iroots_shoup")}
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    ph1 = {k: [] for k in host}
+    ph2 = {k: [] for k in host}
+    for s in range(n.bit_length() - 1):
+        m = 1 << s
+        if s < s1:
+            for k, a in host.items():
+                ph1[k].append(put(a[:, m : 2 * m]))
+        else:
+            m2 = n2 // (2 * (n >> (s + 1)))
+            idx = m + np.arange(n1)[None, :] * m2 + np.arange(m2)[:, None]
+            for k, a in host.items():
+                ph2[k].append(put(a[:, idx][:, :, None, :]))
+    pairs = lambda t, k: tuple(zip(t[k], t[k + "_shoup"]))
+    col = lambda t: modops.wide(t).to(device)
+    return FourStepTables(
+        pairs(ph1, "roots"), pairs(ph1, "iroots"),
+        pairs(ph2, "roots"), pairs(ph2, "iroots"),
+        col(plan.p), (col(plan.n_inv), col(plan.n_inv_shoup)),
+    )
+
+
+def _limb_col(t: torch.Tensor, lo: int, nl: int, extra: int) -> torch.Tensor:
+    """Rows ``[lo, lo + nl)`` of a ``[L, 1]`` per-limb column, wide, with
+    ``extra`` trailing unit dims."""
+    return modops.wide(t[lo : lo + nl]).reshape(nl, *([1] * (1 + extra)))
+
+
+def _bf_ct(u, v, w, ws, p, lazy: bool, first: bool):
+    """Cooley-Tukey pair ``(u + w v, u - w v)`` on wide values; the lazy
+    form (every prime < 2**30) rides ``[0, 4p)`` as in :meth:`NttPlan.fwd_plain`."""
+    if lazy:
+        p2 = p + p
+        ur = u if first else modops.w_reduce_2p(u, p2)
+        t = modops.w_shoup_mul_lazy(v, w, ws, p)
+        return ur + t, ur - t + p2
+    t = modops.w_shoup_mul(v, w, ws, p)
+    return modops.w_mod_add(u, t, p), modops.w_mod_sub(u, t, p)
+
+
+def _bf_gs(u, v, w, ws, p, lazy: bool):
+    """Gentleman-Sande pair ``(u + v, w (u - v))`` on wide values."""
+    if lazy:
+        p2 = p + p
+        return (
+            modops.w_reduce_2p(u + v, p2),
+            modops.w_shoup_mul_lazy(u - v + p2, w, ws, p),
+        )
+    return (
+        modops.w_mod_add(u, v, p),
+        modops.w_shoup_mul(modops.w_mod_sub(u, v, p), w, ws, p),
+    )
+
+
+def phase1(plan: "NttPlan", x: torch.Tensor, lo: int, inverse: bool) -> torch.Tensor:
+    """Stages ``s < s1`` on wide ``[..., l, n1, cols]`` (any column count:
+    a column block of the ``[n1, n2]`` view); butterflies pair rows.  The
+    forward stages run up, the inverse ones down."""
+    n1, cols = plan.n1, x.shape[-1]
+    lead = x.shape[:-2]
+    nl = x.shape[-3]
+    tw = plan.four_step(x.device)
+    p = _limb_col(tw.p, lo, nl, 2)
+    for s in (range(plan.s1 - 1, -1, -1) if inverse else range(plan.s1)):
+        xv = x.reshape(*lead, 1 << s, 2, n1 >> (s + 1), cols)
+        u, v = xv[..., 0, :, :], xv[..., 1, :, :]
+        w, ws = (tw.inv_tw if inverse else tw.fwd_tw)[s]
+        w, ws = w[lo : lo + nl, :, None, None], ws[lo : lo + nl, :, None, None]
+        pair = _bf_gs(u, v, w, ws, p, plan.lazy) if inverse else \
+            _bf_ct(u, v, w, ws, p, plan.lazy, s == 0)
+        x = torch.stack(pair, dim=-3).reshape(*lead, n1, cols)
+    return x
+
+
+def phase2(plan: "NttPlan", xt: torch.Tensor, lo: int, col0: int,
+           inverse: bool) -> torch.Tensor:
+    """Stages ``s >= s1`` on wide ``[..., l, n2, cols]``: columns
+    ``[col0, col0 + cols)`` of the transposed ``[n2, n1]`` view, whose
+    twiddle planes are sliced to them; butterflies pair rows."""
+    n, n2, s1, cols = plan.n, plan.n2, plan.s1, xt.shape[-1]
+    lead = xt.shape[:-2]
+    nl = xt.shape[-3]
+    tw = plan.four_step(xt.device)
+    p = _limb_col(tw.p, lo, nl, 2)
+    bits = n.bit_length() - 1
+    for s in (range(bits - 1, s1 - 1, -1) if inverse else range(s1, bits)):
+        t = n >> (s + 1)
+        xv = xt.reshape(*lead, n2 // (2 * t), 2, t, cols)
+        u, v = xv[..., 0, :, :], xv[..., 1, :, :]
+        w, ws = (tw.inv_tw2 if inverse else tw.fwd_tw2)[s - s1]
+        w = w[lo : lo + nl, ..., col0 : col0 + cols]
+        ws = ws[lo : lo + nl, ..., col0 : col0 + cols]
+        pair = _bf_gs(u, v, w, ws, p, plan.lazy) if inverse else \
+            _bf_ct(u, v, w, ws, p, plan.lazy, False)
+        xt = torch.stack(pair, dim=-3).reshape(*lead, n2, cols)
+    return xt
+
+
+def scale_n_inv(plan: "NttPlan", x: torch.Tensor, lo: int) -> torch.Tensor:
+    """The inverse transform's last step on wide ``[..., l, a, b]``: times
+    ``N^-1`` by a fully reducing Shoup product (canonical output)."""
+    nl = x.shape[-3]
+    tw = plan.four_step(x.device)
+    col = lambda t: _limb_col(t, lo, nl, 1)
+    return modops.w_shoup_mul(x, col(tw.n_inv[0]), col(tw.n_inv[1]), col(tw.p))
+
+
+def reduce_epilogue(plan: "NttPlan", xt: torch.Tensor, lo: int) -> torch.Tensor:
+    """The lazy forward transform's canonicalising epilogue on wide
+    ``[..., l, a, b]``: ``[0, 4p) -> [0, p)``."""
+    return modops.w_reduce_4p_full(
+        xt, _limb_col(plan.four_step(xt.device).p, lo, xt.shape[-3], 1))
 
 
 @functools.lru_cache(maxsize=None)

@@ -2,13 +2,15 @@
 
 Entry points run on the card unless the caller asks for the CPU.  Asking
 for ``cuda`` where there is none raises: nothing carries on on the CPU by
-itself.
+itself.  Likewise an sp mesh (:func:`mesh_devices`) of more shards than
+visible cards raises unless the process asks for virtual devices.
 """
 
 from __future__ import annotations
 
+import os
 import subprocess
-from typing import Union
+from typing import List, Union
 
 import torch
 
@@ -30,6 +32,38 @@ def pick_device(device: Union[str, torch.device, None] = None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+#: ``RSB_TORCH_VIRTUAL_DEVICES=K`` lets an sp mesh of up to K shards share
+#: one card: the port's counterpart of XLA's
+#: ``--xla_force_host_platform_device_count``.
+VIRTUAL_DEVICES_ENV = "RSB_TORCH_VIRTUAL_DEVICES"
+
+
+def mesh_devices(device, n: int) -> List[torch.device]:
+    """The ``n`` devices an sp mesh is built on.  On the CPU, ``n`` copies
+    of ``cpu`` (torch has one CPU device; the copies stand for the JAX
+    tests' virtual host devices).  On CUDA, ``n`` consecutive cards from the
+    one ``device`` names (``cuda:i .. i+n-1``) where they are visible; else
+    ``n`` copies of that card, but only when :data:`VIRTUAL_DEVICES_ENV`
+    allows ``n`` virtual devices.  Otherwise raises, naming ``n`` and the
+    visible count."""
+    dev = pick_device(device)
+    if n < 1:
+        raise ValueError(f"a mesh needs at least one device, not {n}")
+    if dev.type == "cpu":
+        return [dev] * n
+    visible = torch.cuda.device_count()
+    if dev.index + n <= visible:
+        return [torch.device("cuda", dev.index + i) for i in range(n)]
+    virtual = int(os.environ.get(VIRTUAL_DEVICES_ENV, "0") or 0)
+    if n <= virtual:
+        return [dev] * n
+    raise ValueError(
+        f"an sp mesh of {n} devices needs {n} visible cards, {visible} "
+        f"visible (counting from {dev}); set {VIRTUAL_DEVICES_ENV}={n} to "
+        f"place the {n} shards on {dev}"
+    )
 
 
 def card_name_and_power_limit() -> str:

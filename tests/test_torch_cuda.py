@@ -168,3 +168,39 @@ def test_capi_library_on_the_card(card, monkeypatch):
     np.testing.assert_allclose(out[0][0], float(a[0] @ b[0]), atol=5e-5, rtol=0)
     lib.rsbtpu_benchmark_destroy(bid)
     lib.rsbtpu_engine_destroy(eid)
+
+
+@pytest.mark.parametrize("plan_of", ["data", "behz"])
+def test_sharded_transforms_equal_the_kernels(card, monkeypatch, plan_of):
+    """The sharded four-step NTT over 4 virtual devices of the card against
+    K1 (both epilogues, lazy input) and K2, on a registered N = 8192 plan:
+    the CKKS data plan, or the BEHZ plan over q ∪ Bsk."""
+    from reference_seal_backend_tpu_torch.evaluator import behz
+    from reference_seal_backend_tpu_torch.parallel import mesh as tmesh
+    from reference_seal_backend_tpu_torch.parallel import sharded_ntt
+    from reference_seal_backend_tpu_torch.schemes import params as tparams
+    from reference_seal_backend_tpu_torch.utils.device import mesh_devices
+
+    monkeypatch.setenv("RSB_TORCH_VIRTUAL_DEVICES", "4")
+    if plan_of == "data":
+        plan = tparams.make_ckks_context(8192, mult_depth=2, device=card).plan
+    else:
+        plan = behz.tables_for(tparams.make_bfv_context(8192, device=card)).mult_plan
+    mesh = tmesh.make_mesh(4, ("sp",), shape=(4,), devices=mesh_devices(card, 4))
+    assert mesh.devices.tolist() == [card] * 4
+    x = _data(plan, (2,), 0, len(plan.primes), 2, card)
+    xm = sharded_ntt.shard_matrix_view(plan, x, mesh)
+    before = dict(ntt_cuda.launches)
+    for epi in (True, False):
+        got = sharded_ntt.fwd(plan, xm, mesh, epilogue=epi).gather()
+        want = plan.fwd(x, 0, epi)
+        assert torch.equal(got.transpose(-1, -2).reshape(x.shape), want)
+    canon = plan.fwd(x)
+    xt = tmesh.ShardedTensor.distribute(
+        canon.reshape(2, -1, plan.n1, plan.n2).transpose(-1, -2), mesh,
+        (None, None, None, "sp"))
+    got = sharded_ntt.inv(plan, xt, mesh).gather().reshape(x.shape)
+    assert torch.equal(got, plan.inv(canon))
+    assert ntt_cuda.launches["ntt_fwd"] == before["ntt_fwd"] + 3
+    assert ntt_cuda.launches["ntt_inv"] == before["ntt_inv"] + 1
+    torch.cuda.synchronize()
