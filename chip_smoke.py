@@ -21,10 +21,11 @@ Phases (each prints one JSON line; any failure ends the run non-zero):
    generic kernels), lazy and non-lazy.
    ``path_views`` (run after ``capi_path``) both kernels against their
    plain versions once more, on every distinct view (plan, shape, strides,
-   alignment, first limb, epilogue) that the main path and ``capi_path``
-   (b) handed them: the views are noted while those paths run, not listed
-   by hand (among them the BFV multiply's 10-limb views over q u Bsk at
-   N = 8192, and the harness's own sizes).
+   alignment, first limb, epilogue) that the main path, ``limb_path`` and
+   ``capi_path`` (b) handed them: the views are noted while those paths
+   run, not listed by hand (among them the BFV multiply's 10-limb views
+   over q u Bsk at N = 8192, the limb blocks' windows from limb 3 at
+   N = 8192 and limb 7 at N = 16384, and the harness's own sizes).
    ``kernel_times`` (run last) both kernels timed at
    ``[64, 7, 8192]``, at the one-wave shapes of a 1 x 1 dot product, with the
    logistic-regression context's plan at N = 16384 and with a 14-limb plan at
@@ -79,10 +80,27 @@ Phases (each prints one JSON line; any failure ends the run non-zero):
    (``epilogue`` True and False) and K2 on every shape the sp runs handed
    ``parallel/sharded_ntt.py`` (noted in its ``call_log``: the data plans
    and the BEHZ plan over q u Bsk), at sp = 1 and 4, tolerance 0.
-7. the ``kernels`` line (``launches``: the main-path run; ``sp_path_launches``:
-   the sp runs of ``sp_path``; ``capi_path_launches``: the ``rsbtpu_*``
-   calls of ``capi_path`` (b); each counted from 0), the card's name and
-   power limit, and the result line.
+7. ``limb_path`` (after ``sp_path``) limb-sharded ciphertexts through the
+   plain ``Evaluator`` (``parallel/limb.py``) and the process-aware dp x sp
+   mesh, on four virtual devices of the card (``RSB_TORCH_VIRTUAL_DEVICES``
+   for this phase only; cards where four are visible), registered
+   parameters, seed 1234: (a) (dp=2, limb=2), the CKKS dot product's
+   context, a batch of 2 pairs, ``accumulate(rescale(relinearize(
+   multiply)), 100)``, decoded within 5e-5 of the cleartext; (b) limb=2,
+   the logistic-regression context (14 + 2 limbs, G = 2),
+   ``rotate_sum(rescale(relinearize(multiply)), range(8))``; (c)
+   ``make_process_mesh(sp=2)`` and ``SpEvaluator(batch_axes=("dp",))``,
+   multiply -> relinearize -> rescale.  Each equal to the flat
+   ``Evaluator`` integer for integer.  Per case: host ms of the chain
+   beside the flat chain's (median of 3 warm calls), the collectives of
+   one chain, K1 / K2 launches of one warm chain, peak device memory; (a)
+   and (b) must launch both kernels, at the top block's first limb too,
+   and every transform must launch its kernel (no plain version).
+8. the ``kernels`` line (``launches``: the main-path run; ``sp_path_launches``:
+   the sp runs of ``sp_path``; ``limb_path_launches``: the placed chains of
+   ``limb_path``; ``capi_path_launches``: the ``rsbtpu_*`` calls of
+   ``capi_path`` (b); each counted from 0), the card's name and power
+   limit, and the result line.
 """
 
 from __future__ import annotations
@@ -154,6 +172,13 @@ SP_PATH = (
 )
 SP_SIZES = (1, 4)
 SP_TIMED = 3
+# the limb path (parallel/limb.py): meshes of LIMB_DEVICES devices, a dot
+# product of n = LIMB_DOT_N decoded within LIMB_DOT_ATOL, LIMB_TIMED timed
+# chains a case
+LIMB_DEVICES = 4
+LIMB_DOT_N = 100
+LIMB_DOT_ATOL = 5e-5
+LIMB_TIMED = 3
 # NTT launches of one BEHZ multiply: both operands' inverse transforms, the
 # tensor product's forward and inverse over q u Bsk, the output's forward
 BEHZ_SWEEPS = 4
@@ -780,6 +805,216 @@ def phase_sp_path(device):
     return launches, transforms["max_abs_err"]
 
 
+def _host_ms(call, rounds):
+    """Host milliseconds of ``call()`` ending in a synchronise: the median
+    of ``rounds`` calls after one warm-up, and each call's."""
+    call()
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(rounds):
+        t = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(ms), ms
+
+
+def _limb_case(name, chain, flat_args, placed_args, unplace, device, want_lo):
+    """One case of ``limb_path``: the flat chain timed, then the placed
+    chain (its integers equal to the flat ones), timed, with its
+    collectives counted, its K1 / K2 launches and transforms counted
+    (counts from 0 before the placed runs, read after; a transform that
+    did not launch a kernel fails), its views noted and its peak device
+    memory.  Returns the row, the flat result, the launches of the placed
+    runs and the views they noted."""
+    from reference_seal_backend_tpu_torch.ops import ntt as ntt_mod
+    from reference_seal_backend_tpu_torch.ops.cuda import ntt as ntt_cuda
+    from reference_seal_backend_tpu_torch.parallel import sp_eval
+
+    want = chain(*flat_args)
+    flat_ms, flat_each = _host_ms(lambda: chain(*flat_args), LIMB_TIMED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    held = torch.cuda.memory_allocated(device)
+    chain(*flat_args)
+    torch.cuda.synchronize()
+    flat_peak = torch.cuda.max_memory_allocated(device) - held
+
+    calls = {"ntt_fwd": 0, "ntt_inv": 0, "plain": 0}
+    plan_cls = ntt_mod.NttPlan
+    saved = {k: getattr(plan_cls, k) for k in ("fwd", "inv", "fwd_plain", "inv_plain")}
+
+    def counted(name, key):
+        def call(self, x, *a, **k):
+            calls[key] += 1
+            return saved[name](self, x, *a, **k)
+        return call
+
+    plan_cls.fwd, plan_cls.inv = counted("fwd", "ntt_fwd"), counted("inv", "ntt_inv")
+    plan_cls.fwd_plain = counted("fwd_plain", "plain")
+    plan_cls.inv_plain = counted("inv_plain", "plain")
+    ntt_mod.call_log = {}
+    before = dict(ntt_cuda.launches)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        held = torch.cuda.memory_allocated(device)
+        got = unplace(chain(*placed_args))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(device) - held
+        if not torch.equal(got.data, want.data) or \
+                (got.level, got.scale) != (want.level, want.scale):
+            fail(f"limb_path ({name}): the placed chain's result differs from flat")
+        ms, each = _host_ms(lambda: chain(*placed_args), LIMB_TIMED)
+        stats = sp_eval.collective_stats(lambda: chain(*placed_args))
+        one = dict(ntt_cuda.launches)
+        chain(*placed_args)
+        torch.cuda.synchronize()
+        warm = {k: ntt_cuda.launches[k] - one[k] for k in one}
+        launched = {k: ntt_cuda.launches[k] - before[k] for k in before}
+        views = ntt_mod.call_log
+    finally:
+        ntt_mod.call_log = None
+        for k, v in saved.items():
+            setattr(plan_cls, k, v)
+    if calls["plain"] or any(calls[k] != launched[k] for k in launched):
+        fail(f"limb_path ({name}): a transform did not launch its kernel: "
+             f"calls {calls}, kernel launches {launched}")
+    at_lo = {k: sorted({key[5] for key in views if key[1] == k}) for k in launched}
+    if want_lo is not None and not all(want_lo in v for v in at_lo.values()):
+        fail(f"limb_path ({name}): K1 / K2 not both run at lo={want_lo}: {at_lo}")
+    row = {"ms": ms, "ms_each": each, "flat_ms": flat_ms, "flat_ms_each": flat_each,
+           "equal_to_flat": True, "collectives_per_chain": stats,
+           "kernel_launches_per_warm_chain": warm, "transform_calls": calls,
+           "first_limbs": at_lo, "peak_device_bytes": peak,
+           "flat_peak_device_bytes": flat_peak}
+    return row, want, launched, views
+
+
+def phase_limb_path(device):
+    """``limb_path``: limb-sharded ciphertexts through the plain
+    ``Evaluator`` (``parallel/limb.py``) and the process-aware dp×sp mesh,
+    on ``LIMB_DEVICES`` virtual devices of the card (cards where they are
+    visible), at registered parameters, inputs from ``SEED``: (a) (dp=2,
+    limb=2), the CKKS dot product's context, a batch of 2 pairs,
+    ``accumulate(rescale(relinearize(multiply)), 100)``, decoded against
+    the cleartext dot products; (b) limb = 2, the logistic-regression
+    context (G = 2, a digit group straddling the blocks), ``rotate_sum(
+    rescale(relinearize(multiply)), range(8))``; (c) ``make_process_mesh(
+    sp=2)`` with ``SpEvaluator(batch_axes=("dp",))``, multiply ->
+    relinearize -> rescale on (a)'s batch.  Every result equal to the flat
+    ``Evaluator``'s.  Returns the K1 / K2 launches of the placed runs and
+    the views they handed the kernels."""
+    import dataclasses
+
+    import numpy as np
+
+    from reference_seal_backend_tpu_torch.engine.registry import Engine
+    from reference_seal_backend_tpu_torch.evaluator import composite
+    from reference_seal_backend_tpu_torch.parallel import mesh as mesh_mod
+    from reference_seal_backend_tpu_torch.parallel import sp_eval
+    from reference_seal_backend_tpu_torch.schemes import ckks
+    from reference_seal_backend_tpu_torch.utils.device import (
+        VIRTUAL_DEVICES_ENV,
+        mesh_devices,
+    )
+
+    t0 = time.perf_counter()
+    virtual = torch.cuda.device_count() < LIMB_DEVICES
+    saved = os.environ.get(VIRTUAL_DEVICES_ENV)
+    if virtual:
+        os.environ[VIRTUAL_DEVICES_ENV] = str(LIMB_DEVICES)
+    try:
+        engine = Engine(device)
+        rng = np.random.default_rng(SEED)
+        cases, launches, views, setup = {}, {"ntt_fwd": 0, "ntt_inv": 0}, {}, {}
+        ungather = lambda ct: dataclasses.replace(ct, data=ct.data.gather())
+
+        # (a) and (c): the registered dot product context
+        t = time.perf_counter()
+        dot = engine.create_benchmark(engine.find("ckks_dot_product_latency"), None)
+        ctx, ev = dot.ctx, dot.ev
+        if (ctx.n, ctx.L, ctx.n_special, ctx.digit_group) != (8192, 6, 1, 1):
+            fail(f"limb_path: dot context changed: {ctx.n} {ctx.L} "
+                 f"{ctx.n_special} {ctx.digit_group}")
+        enc = ckks.encoder_for(ctx)
+        vals = rng.uniform(-1, 1, (2, 2, LIMB_DOT_N))
+        pad = lambda v: np.concatenate([v, np.zeros(ctx.slots - v.size)])
+        a, b = (dot.encryptor.encrypt_pt(dataclasses.replace(
+            enc.encode(pad(vals[i, 0])),
+            data=torch.stack([enc.encode(pad(vals[i, j])).data for j in range(2)])))
+            for i in range(2))
+        setup["dot"] = time.perf_counter() - t
+        mesh = mesh_mod.make_mesh(LIMB_DEVICES, devices=mesh_devices(device, LIMB_DEVICES))
+        if mesh.shape != {"dp": 2, "limb": 2}:
+            fail(f"limb_path: mesh {mesh.shape}")
+        place = lambda c: mesh_mod.shard_ct(c, mesh, n_batch_axes=1,
+                                            batch_axes=("dp",), limb_axis="limb")
+        dot_chain = lambda x, y: composite.accumulate(
+            ev, ev.rescale_to_next(ev.relinearize(ev.multiply(x, y))), LIMB_DOT_N)
+        row, want, launched, noted = _limb_case(
+            "a", dot_chain, (a, b), (place(a), place(b)), ungather, device, 3)
+        got = dot.decryptor.decrypt(want).real[:, 0]
+        err = float(np.abs(got - (vals[0] * vals[1]).sum(axis=-1)).max())
+        if err > LIMB_DOT_ATOL:
+            fail(f"limb_path (a): decode off the cleartext by {err}")
+        row.update(mesh=mesh.shape, max_abs_err_vs_cleartext=err,
+                   tolerance=LIMB_DOT_ATOL)
+        cases["a_dp2_limb2_dot"] = row
+        for k in launches:
+            launches[k] += launched[k]
+        views.update(noted)
+
+        # (b): the registered logistic-regression context
+        t = time.perf_counter()
+        lr = engine.create_benchmark(engine.find(LOGREG[0]), None)
+        lctx, lev = lr.ctx, lr.ev
+        if (lctx.n, lctx.L, lctx.n_special, lctx.digit_group) != (16384, 14, 2, 2):
+            fail(f"limb_path: logistic-regression context changed: {lctx.n} "
+                 f"{lctx.L} {lctx.n_special} {lctx.digit_group}")
+        lenc = ckks.encoder_for(lctx)
+        la, lb = (lr.encryptor.encrypt_pt(lenc.encode(rng.uniform(-1, 1, lctx.slots)))
+                  for _ in range(2))
+        setup["logistic_regression"] = time.perf_counter() - t
+        mesh2 = mesh_mod.make_mesh(2, devices=mesh_devices(device, 2))
+        place2 = lambda c: mesh_mod.shard_ct(c, mesh2, limb_axis="limb")
+        lr_chain = lambda x, y: lev.rotate_sum(
+            lev.rescale_to_next(lev.relinearize(lev.multiply(x, y))), list(range(8)))
+        row, _, launched, noted = _limb_case(
+            "b", lr_chain, (la, lb), (place2(la), place2(lb)), ungather, device, 7)
+        row.update(mesh=mesh2.shape)
+        cases["b_limb2_logreg"] = row
+        for k in launches:
+            launches[k] += launched[k]
+        views.update(noted)
+
+        # (c): dryrun_multichip step 4, the process-aware dp x sp mesh
+        pmesh = mesh_mod.make_process_mesh(
+            sp=2, devices=mesh_devices(device, LIMB_DEVICES))
+        spe = sp_eval.SpEvaluator(ctx, dot.keys, pmesh, batch_axes=("dp",))
+        sp_chain = lambda x, y: spe.rescale_to_next(spe.relinearize(spe.multiply(x, y)))
+        flat_chain = lambda x, y: ev.rescale_to_next(ev.relinearize(ev.multiply(x, y)))
+        both = lambda x, y: (flat_chain if isinstance(x.data, torch.Tensor) else sp_chain)(x, y)
+        row, _, _, _ = _limb_case(
+            "c", both, (a, b), (spe.shard(a), spe.shard(b)), spe.unshard, device, None)
+        row.update(mesh=pmesh.shape)
+        cases["c_dp2_sp2_process_mesh"] = row
+    finally:
+        if saved is None:
+            os.environ.pop(VIRTUAL_DEVICES_ENV, None)
+        else:
+            os.environ[VIRTUAL_DEVICES_ENV] = saved
+    for key in ("a_dp2_limb2_dot", "b_limb2_logreg"):
+        if not all(cases[key]["kernel_launches_per_warm_chain"].values()):
+            fail(f"limb_path: {key} launched no K1 or no K2: "
+                 f"{cases[key]['kernel_launches_per_warm_chain']}")
+    emit({"phase": "limb_path", "virtual": virtual,
+          "visible_cards": torch.cuda.device_count(), "cases": cases,
+          "launches": launches, "setup_s": setup,
+          "seconds": time.perf_counter() - t0})
+    return launches, views
+
+
 def harness_sizes():
     """The sizes of ``native_harness.cpp``'s ``make_workload``, read from its
     source: the security rule, Offline sample counts, matrix dimensions,
@@ -1137,9 +1372,10 @@ def main() -> int:
     worst = phase_kernels(device)
     launches, views, main_benchmarks = phase_main_path(device)
     sp_launches, sp_worst = phase_sp_path(device)
+    limb_launches, limb_views = phase_limb_path(device)
     capi_launches, capi_views = phase_capi_path(built, device, main_benchmarks)
-    on_path = phase_path_views({"main_path": views, "capi_path": capi_views},
-                               device)
+    on_path = phase_path_views({"main_path": views, "capi_path": capi_views,
+                                "limb_path": limb_views}, device)
     worst = {k: max(worst[k], on_path[k], sp_worst[k]) for k in worst}
     timed = phase_kernel_times(device)
 
@@ -1155,6 +1391,7 @@ def main() -> int:
             "replaces": replaces[name],
             "launches": launches[name],
             "sp_path_launches": sp_launches[name],
+            "limb_path_launches": limb_launches[name],
             "capi_path_launches": capi_launches[name],
             "max_abs_err": worst[name],
             "ms": timed[name]["ms"],

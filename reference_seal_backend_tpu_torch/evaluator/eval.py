@@ -34,6 +34,8 @@ import torch
 
 from reference_seal_backend_tpu_torch.evaluator import behz
 from reference_seal_backend_tpu_torch.ops import modops
+from reference_seal_backend_tpu_torch.parallel import limb
+from reference_seal_backend_tpu_torch.parallel.mesh import ShardedTensor
 from reference_seal_backend_tpu_torch.schemes.core import Ciphertext, Plaintext
 from reference_seal_backend_tpu_torch.schemes.keys import KeySet, SwitchKey
 from reference_seal_backend_tpu_torch.schemes.params import Context
@@ -71,6 +73,9 @@ class Evaluator:
         # mask, polynomial coefficients), by (kind, value, scale, level):
         # filled by the first call, so later ones encode nothing on the host.
         self.plain_cache: dict = {}
+        # This evaluator's counterparts on other devices of a mesh
+        # (parallel/limb.py:on_device), by device.
+        self.device_evs: dict = {}
 
     # -- linear ops ---------------------------------------------------------
 
@@ -165,6 +170,11 @@ class Evaluator:
         if a.size != 2 or b.size != 2:
             raise NotImplementedError("multiply expects size-2 inputs")
         if self.ctx.scheme == "bfv":
+            if isinstance(a.data, ShardedTensor) or isinstance(b.data, ShardedTensor):
+                raise NotImplementedError(
+                    "the BFV BEHZ multiply of ciphertexts placed on a mesh: "
+                    "its base conversion reads every q limb to reach Bsk; "
+                    "gather() the data first")
             return behz.bfv_multiply(self.ctx, a, b)
         l = a.level
         p, pni = self.ctx.consts(0, l)
@@ -201,13 +211,30 @@ class Evaluator:
         cat = lambda arr: torch.cat([arr[:l], arr[sp:]], dim=0)
         return cat(ctx.p), cat(ctx.p_neg_inv), cat(ctx.mu)
 
-    def _cat_key(self, arr: torch.Tensor, l: int) -> torch.Tensor:
+    def _cat_key(
+        self, arr: torch.Tensor, l: int, digits: Optional[Tuple[int, int]] = None
+    ) -> torch.Tensor:
         """Select the live slice of a switch-key polynomial array:
         digits covering live limbs × (live targets ∪ all special rows).
-        [n_dig_total, nf, N] -> [n_dig_live, l + n_special, N]."""
+        [n_dig_total, nf, N] -> [n_dig_live, l + n_special, N].
+        ``digits`` ``(g0, g1)`` keeps digits ``[g0, g1)`` only (a limb
+        block's, :meth:`_digit_range`)."""
         ctx = self.ctx
-        nd = ctx.dig_count(l)
-        return torch.cat([arr[:nd, :l], arr[:nd, ctx.sp_row :]], dim=1)
+        g0, g1 = (0, ctx.dig_count(l)) if digits is None else digits
+        return torch.cat([arr[g0:g1, :l], arr[g0:g1, ctx.sp_row :]], dim=1)
+
+    def _digit_range(self, lo: int, rows: int) -> Tuple[int, int]:
+        """``(g0, g1)``: the digits that data rows ``[lo, lo + rows)``
+        contribute to (a group of G limbs straddling two limb blocks is
+        in both blocks' ranges).  All live digits for ``lo`` 0, ``rows``
+        the level."""
+        G = self.ctx.digit_group
+        return lo // G, -(-(lo + rows) // G)
+
+    def _lazy(self) -> bool:
+        """:func:`_lazy_ok` for this evaluator's context (what
+        ``parallel/limb.py``'s all-reduce keeps its sums in)."""
+        return _lazy_ok(self.ctx)
 
     def key_switch(
         self, d: torch.Tensor, key: SwitchKey, level: int
@@ -215,39 +242,45 @@ class Evaluator:
         """Switch NTT-domain component ``d`` [..., l, N] to the base key.
 
         Returns (kb, ka), each [..., l, N] NTT Montgomery — the additive
-        correction encrypting d·s_src under s.
+        correction encrypting d·s_src under s.  Data placed on a mesh
+        takes ``parallel/limb.py:key_switch`` (the same steps per block,
+        the partial inner products summed by one all-reduce).
         """
-        l = level
-        p_t, _, _ = self._switch_targets(l)
-        dig = self._hoisted_digits(d, l)
-        # 4) inner product with the switch key (Shoup constants: the keys
-        #    are per-context constants, normal·Mont lands in Montgomery
-        #    form) and accumulate over source digits.  Lazy path: terms in
-        #    [0, 2p) (shoup_mul_lazy is exact for the [0, 4p) digits), sum
-        #    stays lazy, and the mod-down below consumes [0, 2p) directly
-        #    (its iNTT is Harvey-tolerant, its Shoup multiplies exact).
-        if _lazy_ok(self.ctx):
-            tb = modops.shoup_mul_lazy(
-                dig, self._cat_key(key.b, l), self._cat_key(key.bs, l), p_t
-            )
-            ta = modops.shoup_mul_lazy(
-                dig, self._cat_key(key.a, l), self._cat_key(key.as_, l), p_t
-            )
-            acc_b = _mod_sum_lazy(tb, p_t, axis=-3)
-            acc_a = _mod_sum_lazy(ta, p_t, axis=-3)
-        else:
-            tb = modops.shoup_mul(
-                dig, self._cat_key(key.b, l), self._cat_key(key.bs, l), p_t
-            )
-            ta = modops.shoup_mul(
-                dig, self._cat_key(key.a, l), self._cat_key(key.as_, l), p_t
-            )
-            acc_b = _mod_sum(tb, p_t, axis=-3)
-            acc_a = _mod_sum(ta, p_t, axis=-3)
+        if isinstance(d, ShardedTensor):
+            return limb.key_switch(self, d, key, level)
+        acc_b, acc_a = self._switch_inner(
+            self._hoisted_digits(d, level), key, level
+        )
         # 5) divide-and-round by the special modulus.
-        kb = self._mod_down_special(acc_b, l)
-        ka = self._mod_down_special(acc_a, l)
+        kb = self._mod_down_special(acc_b, level)
+        ka = self._mod_down_special(acc_a, level)
         return kb, ka
+
+    def _switch_inner(
+        self, dig: torch.Tensor, key: SwitchKey, l: int,
+        digits: Optional[Tuple[int, int]] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Step 4 of key switching: the inner products of the lifted
+        digits ``dig`` [..., n_dig, l+ns, N] (digits ``digits``, default
+        all live) with the switch key, summed over the digits:
+        (acc_b, acc_a), each [..., l+ns, N]."""
+        p_t, _, _ = self._switch_targets(l)
+        key_b = self._cat_key(key.b, l, digits)
+        key_a = self._cat_key(key.a, l, digits)
+        key_bs = self._cat_key(key.bs, l, digits)
+        key_as = self._cat_key(key.as_, l, digits)
+        # Shoup constants: the keys are per-context constants, normal·Mont
+        # lands in Montgomery form.  Lazy path: terms in [0, 2p)
+        # (shoup_mul_lazy is exact for the [0, 4p) digits), sum stays
+        # lazy, and the mod-down consumes [0, 2p) directly (its iNTT is
+        # Harvey-tolerant, its Shoup multiplies exact).
+        if _lazy_ok(self.ctx):
+            tb = modops.shoup_mul_lazy(dig, key_b, key_bs, p_t)
+            ta = modops.shoup_mul_lazy(dig, key_a, key_as, p_t)
+            return _mod_sum_lazy(tb, p_t, axis=-3), _mod_sum_lazy(ta, p_t, axis=-3)
+        tb = modops.shoup_mul(dig, key_b, key_bs, p_t)
+        ta = modops.shoup_mul(dig, key_a, key_as, p_t)
+        return _mod_sum(tb, p_t, axis=-3), _mod_sum(ta, p_t, axis=-3)
 
     def _hoisted_digits(self, d: torch.Tensor, level: int) -> torch.Tensor:
         """Steps 1-3 of key switching for ``d`` [..., l, N] NTT Montgomery:
@@ -256,15 +289,28 @@ class Evaluator:
         live ∪ specials.  The expensive part (the O(n_dig·(l+ns)) lift
         NTTs) — shared across all rotations of one ciphertext by
         :meth:`rotate_sum` (hoisting)."""
+        # 1) digits: coefficient-domain residues per live limb.
+        return self._lift_digits(self.ctx.plan.inv(d, lo=0), level)
+
+    def _lift_digits(
+        self, d_coeff: torch.Tensor, level: int, lo: int = 0
+    ) -> torch.Tensor:
+        """Steps 2-3 of key switching on coefficient-form data rows
+        ``d_coeff`` [..., r, N] holding limbs ``[lo, lo + r)`` (all ``l``
+        live limbs unless a limb block's): the lift onto every target and
+        the forward NTTs.  Returns the digits of :meth:`_digit_range`
+        ``(lo, r)``, [..., g1 - g0, l+ns, N]; a digit group that the rows
+        hold only part of is the sum of that part (the rest is another
+        block's)."""
         ctx = self.ctx
         l = level
         G = ctx.digit_group
         lazy = _lazy_ok(ctx)
-        # 1) digits: coefficient-domain residues per live limb.
-        d_coeff = ctx.plan.inv(d, lo=0)
+        r = d_coeff.shape[-2]
+        rows = slice(lo, lo + r)
         p_t, _, mu_t = self._switch_targets(l)
         if G == 1:
-            d_norm = modops.from_mont(d_coeff, ctx.p[:l], ctx.p_neg_inv[:l])
+            d_norm = modops.from_mont(d_coeff, ctx.p[rows], ctx.p_neg_inv[rows])
             # 2) lift each source digit onto all targets (live ∪ special).
             # Lazy path: the lift stays in [0, 2p) — the Harvey NTT below
             # accepts it, and the digits' consumers (shoup_mul inner
@@ -276,7 +322,7 @@ class Evaluator:
             )
             lifted = barrett(
                 d_norm[..., :, None, :], p_t, mu_t
-            )  # [..., l_src, l+ns, N]
+            )  # [..., r, l+ns, N]
         else:
             # Grouped fast base conversion (params.Context.digit_tables):
             # v_k = d_k·(Q_g/q_k)^{-1} mod q_k  (one mont_mul, replacing
@@ -284,33 +330,39 @@ class Evaluator:
             # D̃_g[j] = Σ_{k∈g} [v_k mod p_j]·(Q_g/q_k mod p_j).
             ihat, W, Ws = ctx.digit_tables(l)
             v = modops.mont_mul(
-                d_coeff, ihat, ctx.p[:l], ctx.p_neg_inv[:l]
-            )  # [..., l, N] normal form
+                d_coeff, ihat[rows], ctx.p[rows], ctx.p_neg_inv[rows]
+            )  # [..., r, N] normal form
             if lazy:
                 contrib = modops.shoup_mul_lazy(
                     modops.barrett_reduce_u32_lazy(
                         v[..., :, None, :], p_t, mu_t
                     ),
-                    W,
-                    Ws,
+                    W[rows],
+                    Ws[rows],
                     p_t,
-                )  # [..., l, l+ns, N] in [0, 2p)
+                )  # [..., r, l+ns, N] in [0, 2p)
             else:
                 contrib = modops.shoup_mul(
                     modops.barrett_reduce_u32(v[..., :, None, :], p_t, mu_t),
-                    W,
-                    Ws,
+                    W[rows],
+                    Ws[rows],
                     p_t,
-                )  # [..., l, l+ns, N]
-            nd = ctx.dig_count(l)
-            pad = nd * G - l
-            if pad:
+                )  # [..., r, l+ns, N]
+            # zero rows for the group members outside [lo, lo + r)
+            g0, g1 = self._digit_range(lo, r)
+            head, pad = lo - g0 * G, g1 * G - lo - r
+            zeros = lambda k: contrib.new_zeros(
+                *contrib.shape[:-3], k, *contrib.shape[-2:]
+            )
+            if head or pad:
                 contrib = torch.cat(
-                    [contrib, torch.zeros_like(contrib[..., :pad, :, :])],
+                    ([zeros(head)] if head else [])
+                    + [contrib]
+                    + ([zeros(pad)] if pad else []),
                     dim=-3,
                 )
             grp = contrib.reshape(
-                *contrib.shape[:-3], nd, G, *contrib.shape[-2:]
+                *contrib.shape[:-3], g1 - g0, G, *contrib.shape[-2:]
             )
             lifted = grp[..., 0, :, :]
             p2_t = modops.add_raw(p_t, p_t)
@@ -321,7 +373,7 @@ class Evaluator:
                     )
                 else:
                     lifted = modops.mod_add(lifted, grp[..., gi, :, :], p_t)
-            # [..., n_dig, l+ns, N]
+            # [..., g1 - g0, l+ns, N]
         # 3) forward NTT per target modulus (normal form stays normal).
         # Lazy path: skip the canonical epilogue — the inner product's
         # shoup_mul is exact for digits in [0, 4p).
@@ -331,14 +383,20 @@ class Evaluator:
         )
         return torch.cat([data_part, sp_part], dim=-2)
 
-    def _mod_down_special(self, x: torch.Tensor, l: int) -> torch.Tensor:
+    def _mod_down_special(
+        self, x: torch.Tensor, l: int, lo: int = 0, rows: Optional[int] = None
+    ) -> torch.Tensor:
         """[..., l+ns, N] (live + special rows, NTT Mont) -> [..., l, N]
-        Montgomery form of round(x / P).
+        Montgomery form of round(x / P); with ``rows``, only the output
+        rows ``[lo, lo + rows)`` (a limb block's: the special-row work is
+        the same, the live-row work that block's share).
 
         ``x`` may arrive LAZY in [0, 2p) (key_switch / rotate_sum inner
         products): the special-row iNTT is Harvey-tolerant and every live
         row passes through an exact any-uint32 shoup_mul, so the result
-        is bit-identical to canonical input.
+        is bit-identical to canonical input — and to any other
+        representative of the same residues (a sum split over limb
+        blocks).
 
         n_special == 1: the exact centered divide-and-round (bit-identical
         to the pre-grouping path).  n_special > 1: single-shot fast base
@@ -348,36 +406,40 @@ class Evaluator:
         noise (analysis in moddown_tables)."""
         ctx = self.ctx
         ns = ctx.n_special
+        live = slice(lo, lo + (l if rows is None else rows))
         if ns == 1:
-            return self._peel_special(x, l, 0)
+            return self._peel_special(x, l, 0, live)
         ihat, W, Ws, invP, invPs, invPm, invPms = ctx.moddown_tables(l)
         sp = ctx.sp_row
         v_mont = ctx.plan.inv(x[..., l:, :], lo=sp)  # [..., ns, N]
         y = modops.mont_mul(
             v_mont, ihat, ctx.p[sp:], ctx.p_neg_inv[sp:]
         )  # [..., ns, N] normal: y_s = v_s·(P/p_s)^{-1} mod p_s
-        p_l, mu_l = ctx.p[:l], ctx.mu[:l]
+        p_l, mu_l = ctx.p[live], ctx.mu[live]
         contrib = modops.shoup_mul(
             modops.barrett_reduce_u32(y[..., :, None, :], p_l, mu_l),
-            W,
-            Ws,
+            W[:, live],
+            Ws[:, live],
             p_l,
-        )  # [..., ns, l, N]
+        )  # [..., ns, rows, N]
         u = contrib[..., 0, :, :]
         for s in range(1, ns):
             u = modops.mod_add(u, contrib[..., s, :, :], p_l)
         # u_ntt only feeds the fully-reducing shoup_mul below (exact for
         # any uint32), so the lazy NTT's canonical epilogue is skippable.
-        u_ntt = ctx.plan.fwd(u, lo=0, epilogue=not _lazy_ok(ctx))
+        u_ntt = ctx.plan.fwd(u, lo=lo, epilogue=not _lazy_ok(ctx))
         return modops.mod_sub(
-            modops.shoup_mul(x[..., :l, :], invP, invPs, p_l),
-            modops.shoup_mul(u_ntt, invPm, invPms, p_l),
+            modops.shoup_mul(x[..., live, :], invP[live], invPs[live], p_l),
+            modops.shoup_mul(u_ntt, invPm[live], invPms[live], p_l),
             p_l,
         )
 
-    def _peel_special(self, x: torch.Tensor, l: int, j: int) -> torch.Tensor:
+    def _peel_special(
+        self, x: torch.Tensor, l: int, j: int, live: Optional[slice] = None
+    ) -> torch.Tensor:
         """Divide-and-round ``x`` [..., l+j+1, N] (rows = live 0..l-1 then
-        specials 0..j) by special prime j -> [..., l+j, N]."""
+        specials 0..j) by special prime j -> [..., l+j, N] (of the live
+        rows, ``live`` only: default all)."""
         ctx = self.ctx
         dr = ctx.L + j  # context row of the divisor prime
         k = l + j       # its row index within x
@@ -413,12 +475,14 @@ class Evaluator:
                 p,
             )
 
-        live = slice(0, l)
+        live = slice(0, l) if live is None else live
         # w_ntt only feeds combine's fully-reducing shoup_mul (exact for
         # any uint32) — skip the lazy NTT's canonical epilogue.
         epi = not _lazy_ok(ctx)
         out = combine(
-            x[..., :l, :], ctx.plan.fwd(lift(live), lo=0, epilogue=epi), live
+            x[..., live, :],
+            ctx.plan.fwd(lift(live), lo=live.start, epilogue=epi),
+            live,
         )
         if j == 0:
             return out
@@ -447,26 +511,41 @@ class Evaluator:
 
     def _drop_one_scaled(self, data: torch.Tensor, l: int) -> torch.Tensor:
         """Divide-and-round NTT-domain data [..., l, N] by prime l-1."""
-        ctx = self.ctx
         drop = l - 1
-        v_mont = ctx.plan.inv(data[..., drop:l, :], lo=drop)
-        v = modops.from_mont(
+        v = self._dropped_row(data[..., drop:l, :], drop)
+        return self._scale_by_dropped(data[..., :drop, :], v, drop)
+
+    def _dropped_row(self, row: torch.Tensor, drop: int) -> torch.Tensor:
+        """The dropped prime's row [..., 1, N] (NTT Montgomery) in
+        coefficient form, normal, in [0, p_drop)."""
+        ctx = self.ctx
+        v_mont = ctx.plan.inv(row, lo=drop)
+        return modops.from_mont(
             v_mont, ctx.p[drop : drop + 1], ctx.p_neg_inv[drop : drop + 1]
         )
+
+    def _scale_by_dropped(
+        self, data: torch.Tensor, v: torch.Tensor, drop: int, lo: int = 0
+    ) -> torch.Tensor:
+        """Rows ``[lo, lo + r)`` of the rescaled data: ``data`` [..., r, N]
+        (those rows, NTT Montgomery) less the centred lift of the dropped
+        row ``v`` (:meth:`_dropped_row`), times p_drop^-1."""
+        ctx = self.ctx
+        rows = slice(lo, lo + data.shape[-2])
+        p = ctx.p[rows]
         flag = modops.ugt(v, ctx.div_half[drop])
         w = modops.mod_sub(
-            modops.barrett_reduce_u32(v, ctx.p[:drop], ctx.mu[:drop]),
-            flag * ctx.div_mod[drop, :drop][:, None],
-            ctx.p[:drop],
+            modops.barrett_reduce_u32(v, p, ctx.mu[rows]),
+            flag * ctx.div_mod[drop, rows][:, None],
+            p,
         )
         # w_ntt only feeds the fully-reducing shoup_mul below (exact for
         # any uint32) — skip the lazy NTT's canonical epilogue.
-        w_ntt = ctx.plan.fwd(w, lo=0, epilogue=not _lazy_ok(ctx))
-        p = ctx.p[:drop]
-        sel = lambda t: t[drop, :drop][:, None]
+        w_ntt = ctx.plan.fwd(w, lo=lo, epilogue=not _lazy_ok(ctx))
+        sel = lambda t: t[drop, rows][:, None]
         return modops.mod_sub(
             modops.shoup_mul(
-                data[..., :drop, :],
+                data,
                 sel(ctx.div_inv),
                 sel(ctx.div_inv_shoup),
                 p,
@@ -483,19 +562,30 @@ class Evaluator:
     def rescale_to_next(self, a: Ciphertext) -> Ciphertext:
         """CKKS rescale: divide-and-round by the last live prime *group*
         (composite rescaling — rescale_group primes ≈ one SEAL scale
-        prime)."""
+        prime).  Data placed on a mesh takes ``parallel/limb.py:rescale``."""
         ctx = self.ctx
         group = getattr(ctx, "rescale_group", 1)
         l = a.level
         if l - group < getattr(ctx, "min_level", 1):
             raise ValueError("no prime group left to rescale")
-        data = a.data
         scale = a.scale
+        for i in range(group):
+            scale /= ctx.data_primes[l - 1 - i]
+        if isinstance(a.data, ShardedTensor):
+            return replace(a, data=limb.rescale(self, a.data, l, group),
+                           level=l - group, scale=scale)
+        data = a.data
         for _ in range(group):
             data = self._drop_one_scaled(data, l)
             l -= 1
-            scale /= ctx.data_primes[l]
         return replace(a, data=data, level=l, scale=scale)
+
+    def _drop_rows(self, data: torch.Tensor, level: int) -> torch.Tensor:
+        """The first ``level`` limbs of ``data`` [..., l, N] (on a mesh:
+        ``parallel/limb.py:drop_to``, the blocks evened out after)."""
+        if isinstance(data, ShardedTensor):
+            return limb.drop_to(data, level)
+        return data[..., :level, :]
 
     def mod_switch_to_next(self, a: Ciphertext) -> Ciphertext:
         """CKKS modulus-chain drop (one rescale group) without scaling
@@ -504,7 +594,7 @@ class Evaluator:
         l = a.level - group
         if l < 1:
             raise ValueError("cannot drop below one live prime")
-        return replace(a, data=a.data[..., :l, :], level=l)
+        return replace(a, data=self._drop_rows(a.data, l), level=l)
 
     def mod_switch_to(self, a: Ciphertext, level: int) -> Ciphertext:
         """Drop live primes down to ``level`` (a prime count)."""
@@ -512,12 +602,12 @@ class Evaluator:
             raise ValueError("cannot mod-switch up")
         if level < 1:
             raise ValueError("cannot drop below one live prime")
-        return replace(a, data=a.data[..., :level, :], level=level)
+        return replace(a, data=self._drop_rows(a.data, level), level=level)
 
     def mod_switch_plain_to(self, pt: Plaintext, level: int) -> Plaintext:
         if level > pt.level:
             raise ValueError("cannot mod-switch plaintext up")
-        return replace(pt, data=pt.data[..., :level, :], level=level)
+        return replace(pt, data=self._drop_rows(pt.data, level), level=level)
 
     def match_level(
         self, a: Ciphertext, b: Ciphertext
@@ -644,24 +734,48 @@ class Evaluator:
             for _ in range(n_id - 1):
                 out = modops.mod_add(out, a.data, p)
             return replace(a, data=out)
+        for s in nonzero:
+            g = pow(5, s, 2 * n)
+            if self.keys is None or g not in self.keys.galois:
+                raise ValueError(f"missing Galois key for element {g}")
+        if isinstance(a.data, ShardedTensor):
+            return replace(
+                a, data=limb.rotate_sum(self, a.data, l, nonzero, n_id)
+            )
+        acc, c0_rot = self._rotate_sum_partial(
+            a.data[..., 0, :, :], self._hoisted_digits(a.data[..., 1, :, :], l),
+            l, nonzero,
+        )
+        return replace(
+            a, data=self._rotate_sum_finish(acc, c0_rot, a.data, l, n_id)
+        )
+
+    def _rotate_sum_partial(
+        self, c0: torch.Tensor, dig: torch.Tensor, l: int,
+        nonzero: Sequence[int], lo: int = 0,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """:meth:`rotate_sum` up to its mod-down, for c0's rows ``[lo, lo +
+        r)`` and the lifted digits ``dig`` of :meth:`_lift_digits` ``(lo,
+        r)``: the key-switch accumulator of every rotation summed
+        [..., 2 (b, a), l+ns, N] and the rotated c0s summed [..., r, N],
+        both in storage order."""
+        ctx = self.ctx
+        n = ctx.n
+        rows = slice(lo, lo + c0.shape[-2])
         p_t, _, _ = self._switch_targets(l)
         lazy = _lazy_ok(ctx)
         p2_t = modops.add_raw(p_t, p_t)
         _, P_dev, Q_dev = self._p5_tables()
         # ONE gather into p5 order for the shared digits and c0; every
         # per-rotation φ_g is then a roll (see _p5_tables).
-        dig = torch.index_select(
-            self._hoisted_digits(a.data[..., 1, :, :], l), -1, P_dev
-        )
-        c0_p5 = torch.index_select(a.data[..., 0, :, :], -1, P_dev)
-        cat2 = lambda k: self._cat_key(k, l)
+        dig = torch.index_select(dig, -1, P_dev)
+        c0_p5 = torch.index_select(c0, -1, P_dev)
+        digits = self._digit_range(lo, c0.shape[-2])
+        cat2 = lambda k: self._cat_key(k, l, digits)
         acc = None           # [..., 2(b,a), l+ns, N] pre-mod-down, p5 order
-        c0_parts = []        # rolled c0 components, [..., l, N] p5 order
+        c0_parts = []        # rolled c0 components, [..., r, N] p5 order
         for s in nonzero:
-            g = pow(5, s, 2 * n)
-            if self.keys is None or g not in self.keys.galois:
-                raise ValueError(f"missing Galois key for element {g}")
-            hk = self._hoisted_key_p5(g)
+            hk = self._hoisted_key_p5(pow(5, s, 2 * n))
             pair_w = torch.stack([cat2(hk.b), cat2(hk.a)])  # [2, nd, l+ns, N]
             pair_s = torch.stack([cat2(hk.bs), cat2(hk.as_)])
             if lazy:
@@ -691,16 +805,27 @@ class Evaluator:
                 )
             c0_parts.append(self._roll_p5(c0_p5, s))
         acc = torch.index_select(acc, -1, Q_dev)          # back to storage
-        kba = self._mod_down_special(acc, l)                # [..., 2, l, N]
         c0_rot = torch.index_select(
-            _mod_sum(torch.stack(c0_parts), p, axis=0), -1, Q_dev
+            _mod_sum(torch.stack(c0_parts), ctx.p[rows], axis=0), -1, Q_dev
         )
+        return acc, c0_rot
+
+    def _rotate_sum_finish(
+        self, acc: torch.Tensor, c0_rot: torch.Tensor, data: torch.Tensor,
+        l: int, n_id: int, lo: int = 0,
+    ) -> torch.Tensor:
+        """:meth:`rotate_sum` from its mod-down on, for the rows ``[lo, lo
+        + r)`` of ``data`` [..., 2, r, N]: one mod-down of ``acc`` shared by
+        every rotation, plus the identity steps.  Returns [..., 2, r, N]."""
+        r = data.shape[-2]
+        p = self.ctx.p[lo : lo + r]
+        kba = self._mod_down_special(acc, l, lo, r)       # [..., 2, r, N]
         c0 = modops.mod_add(c0_rot, kba[..., 0, :, :], p)
         c1 = kba[..., 1, :, :]
         for _ in range(n_id):
-            c0 = modops.mod_add(c0, a.data[..., 0, :, :], p)
-            c1 = modops.mod_add(c1, a.data[..., 1, :, :], p)
-        return replace(a, data=torch.stack([c0, c1], dim=-3))
+            c0 = modops.mod_add(c0, data[..., 0, :, :], p)
+            c1 = modops.mod_add(c1, data[..., 1, :, :], p)
+        return torch.stack([c0, c1], dim=-3)
 
 
 def _mod_sum(x: torch.Tensor, p: torch.Tensor, axis: int) -> torch.Tensor:

@@ -16,11 +16,15 @@ place, run block by block, a plain tensor operand taking each block's part
 on the block's device.  An operation that would read across a sharded dim,
 or has no local form (a whole transform, a kernel), raises
 ``NotImplementedError`` naming it: there is no implicit gather.  Whole
-functions of a dp-sharded batch run per block through :func:`shard_map`.  Data moves
-between blocks only through the explicit collectives here
-(:meth:`ShardedTensor.gather`, :func:`gather_index`, :func:`roll_segments`)
-and the sharded NTT's all-to-all (``parallel/sharded_ntt.py``), each counted
-in :data:`counts` while ``parallel/sp_eval.py:collective_stats`` runs.
+functions of a dp-sharded batch run per block through :func:`shard_map`;
+the evaluator's key switch, rotations, rescale and mod switch of limb-sharded
+data run through ``parallel/limb.py``.  Data moves between blocks only
+through the explicit collectives here (:meth:`ShardedTensor.gather`,
+:func:`gather_index`, :func:`roll_segments` for the sp layout;
+:func:`all_gather_dim`, :func:`all_reduce_mod`, :func:`rebalance` for the
+limb path) and the sharded NTT's all-to-all (``parallel/sharded_ntt.py``),
+each counted in :data:`counts` while ``parallel/sp_eval.py:collective_stats``
+runs.
 
 Axis -> fabric contract of the reference: ``dp`` (the ciphertext batch) is
 the only axis that may span hosts; ``sp`` and ``limb`` stay within one.
@@ -38,6 +42,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from reference_seal_backend_tpu_torch.ops import modops
 from reference_seal_backend_tpu_torch.utils.device import mesh_devices
 
 COLLECTIVES = ("all-to-all", "all-gather", "collective-permute", "all-reduce")
@@ -220,7 +225,12 @@ def replicate(tree, mesh: Mesh):
     block's op takes it on the block's device), so this places every tensor
     of ``tree`` (dataclasses, dicts, lists and tuples of them) on the mesh's
     first device."""
-    dev = mesh.devices.flat[0]
+    return to_device(tree, mesh.devices.flat[0])
+
+
+def to_device(tree, dev: torch.device):
+    """Every tensor of ``tree`` (dataclasses, dicts, lists and tuples of
+    them) on ``dev``; anything else as it is."""
 
     def place(x):
         if isinstance(x, torch.Tensor):
@@ -677,3 +687,114 @@ def roll_segments(x: ShardedTensor, seg: int, shift: int) -> ShardedTensor:
     if moved:
         count("collective-permute")
     return ShardedTensor(blocks, mesh, x.spec)
+
+
+# ---------------------------------------------------------------------------
+# Collectives along one mesh axis, on the blocks of a limb-sharded stack.
+# ``blocks`` is an object array of the mesh's shape, one tensor per device;
+# a group is the blocks that differ only in their ``axis`` coordinate.
+# ---------------------------------------------------------------------------
+
+def _groups(mesh: Mesh, axis: Optional[str]) -> List[list]:
+    """The coordinates of each group along ``axis``, in axis order (every
+    block its own group when ``axis`` is None)."""
+    if axis is None:
+        return [[c] for c in _coords(mesh)]
+    pos = mesh.axis_names.index(axis)
+    out: Dict[tuple, list] = {}
+    for c in _coords(mesh):
+        out.setdefault(c[:pos] + c[pos + 1 :], []).append(c)
+    return list(out.values())
+
+
+def _spans(mesh: Mesh, axis: Optional[str]) -> bool:
+    return axis is not None and mesh.shape[axis] > 1
+
+
+def all_gather_dim(blocks: np.ndarray, mesh: Mesh, axis: Optional[str],
+                   dim: int) -> np.ndarray:
+    """All-gather of one dim along ``axis``: every block gets its group's
+    blocks concatenated along ``dim`` in axis order, on its own device
+    (computed once per device of a group).  Blocks may differ in their size
+    along ``dim``; an empty one adds nothing, so this also hands one
+    block's tensor to its whole group.  One all-gather."""
+    out = np.empty(mesh.devices.shape, dtype=object)
+    for group in _groups(mesh, axis):
+        done: Dict[torch.device, torch.Tensor] = {}
+        for c in group:
+            dev = mesh.devices[c]
+            if dev not in done:
+                done[dev] = torch.cat([blocks[q].to(dev) for q in group], dim=dim)
+            out[c] = done[dev]
+    if _spans(mesh, axis):
+        count("all-gather")
+    return out
+
+
+def all_reduce_mod(blocks: np.ndarray, mesh: Mesh, axis: Optional[str],
+                   p: torch.Tensor, lazy: bool) -> np.ndarray:
+    """Modular all-reduce along ``axis``: every block gets the sum mod
+    ``p`` of its group's blocks, added in axis order, on its own device
+    (so every block of a group holds the same integers).  ``p`` broadcasts
+    against a block (a ``[rows, 1]`` column).  ``lazy``: blocks and sum in
+    ``[0, 2p)`` (a raw add and one conditional subtraction of 2p a term;
+    every prime below 2**30), else canonical (modular adds).  The sum is
+    congruent to a sum of the same terms in any other order, not always
+    the same representative: a consumer that reduces fully sees no
+    difference.  One all-reduce."""
+    out = np.empty(mesh.devices.shape, dtype=object)
+    for group in _groups(mesh, axis):
+        done: Dict[torch.device, torch.Tensor] = {}
+        for c in group:
+            dev = mesh.devices[c]
+            if dev not in done:
+                pd = p.to(dev)
+                p2 = modops.add_raw(pd, pd)
+                acc = blocks[group[0]].to(dev)
+                for q in group[1:]:
+                    x = blocks[q].to(dev)
+                    acc = (modops.reduce_2p(modops.add_raw(acc, x), p2) if lazy
+                           else modops.mod_add(acc, x, pd))
+                done[dev] = acc
+            out[c] = done[dev]
+    if _spans(mesh, axis):
+        count("all-reduce")
+    return out
+
+
+def rebalance(blocks: np.ndarray, mesh: Mesh, axis: Optional[str],
+              dim: int) -> np.ndarray:
+    """Even out a dim split unevenly along ``axis`` (block i of a group
+    holds the next ``blocks[i].shape[dim]`` entries, in axis order) into
+    equal consecutive blocks, each assembled from the pieces of the blocks
+    that hold its entries; a block whose entries stay in place is kept as
+    it is.  One collective-permute where a piece crosses blocks, none
+    where nothing moves.  Raises ``NotImplementedError`` where the dim
+    does not split evenly (``ShardedTensor`` holds equal blocks only)."""
+    out = np.empty(mesh.devices.shape, dtype=object)
+    moved = False
+    for group in _groups(mesh, axis):
+        sizes = [blocks[c].shape[dim] for c in group]
+        total, k = sum(sizes), len(group)
+        if total % k:
+            raise NotImplementedError(
+                f"{total} limbs do not split into {k} equal blocks over mesh "
+                f"axis {axis!r}: a level the limb axis does not divide")
+        width = total // k
+        starts = np.concatenate([[0], np.cumsum(sizes)])
+        for i, c in enumerate(group):
+            lo, hi = i * width, (i + 1) * width
+            if (starts[i], starts[i + 1]) == (lo, hi):
+                out[c] = blocks[c]
+                continue
+            dev, pieces = mesh.devices[c], []
+            for j, q in enumerate(group):
+                a, b = max(lo, int(starts[j])), min(hi, int(starts[j + 1]))
+                if a < b:
+                    moved |= j != i
+                    pieces.append(
+                        blocks[q].narrow(dim, a - int(starts[j]), b - a).to(dev))
+            out[c] = torch.cat(pieces, dim=dim) if len(pieces) > 1 else pieces[0]
+    if moved:
+        count("collective-permute")
+    return out

@@ -590,3 +590,14 @@ def make_bfv_context(
         ),
         pick_device(device),
     )
+
+
+def context_on(ctx: Context, device) -> Context:
+    """The context of ``ctx``'s parameters with its tables on ``device``
+    (the same primes, so the same integers; cached as the factories
+    cache).  ``ctx`` itself when it lives there."""
+    dev = pick_device(device)
+    if dev == ctx.device:
+        return ctx
+    make = {CkksContext: _make_ckks_context, BfvContext: _make_bfv_context}
+    return make[type(ctx)](ctx.params, dev)

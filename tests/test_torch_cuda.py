@@ -204,3 +204,81 @@ def test_sharded_transforms_equal_the_kernels(card, monkeypatch, plan_of):
     assert ntt_cuda.launches["ntt_fwd"] == before["ntt_fwd"] + 3
     assert ntt_cuda.launches["ntt_inv"] == before["ntt_inv"] + 1
     torch.cuda.synchronize()
+
+
+def test_limb_blocks_launch_the_kernels_at_their_offsets(card, monkeypatch):
+    """``parallel/limb.py``'s per-block transforms on a (dp=2, limb=2) mesh
+    of four virtual devices of the card, registered N = 8192 plan: one K1
+    / K2 launch per block, the top block's at limb 3, each block equal to
+    the plain version at its limbs; the whole equal to K1 / K2 on the
+    unsharded data.  A CUDA mesh of four without virtual devices raises on
+    a one-card machine, never falling back to the CPU."""
+    from reference_seal_backend_tpu_torch.parallel import limb
+    from reference_seal_backend_tpu_torch.parallel import mesh as tmesh
+    from reference_seal_backend_tpu_torch.schemes import params as tparams
+    from reference_seal_backend_tpu_torch.utils.device import mesh_devices
+
+    plan = tparams.make_ckks_context(8192, mult_depth=2, device=card).plan
+    x = _data(plan, (4,), 0, 6, 2, card)
+    if torch.cuda.device_count() < 4:
+        monkeypatch.delenv("RSB_TORCH_VIRTUAL_DEVICES", raising=False)
+        with pytest.raises(ValueError, match="RSB_TORCH_VIRTUAL_DEVICES"):
+            mesh_devices(card, 4)
+    monkeypatch.setenv("RSB_TORCH_VIRTUAL_DEVICES", "4")
+    mesh = tmesh.make_mesh(4, devices=[card] * 4)
+    placed = tmesh.ShardedTensor.distribute(x, mesh, ("dp", "limb", None))
+    before = dict(ntt_cuda.launches)
+    tntt.call_log = {}
+    try:
+        for epi in (True, False):
+            got = limb.fwd(plan, placed, epilogue=epi)
+            assert torch.equal(got.gather(), plan.fwd(x, 0, epi))
+            top = got.blocks[1, 1]
+            assert torch.equal(top, plan.fwd_plain(x[2:, 3:], 3, epi))
+        canon = limb.fwd(plan, placed)
+        back = limb.inv(plan, canon)
+        assert torch.equal(back.blocks[0, 1], plan.inv_plain(canon.blocks[0, 1], 3))
+        assert torch.equal(back.gather(), plan.inv(canon.gather()))
+        log = tntt.call_log
+    finally:
+        tntt.call_log = None
+    # per block: 3 forward calls of 4 blocks, 1 inverse; flat: 2 and 1
+    assert ntt_cuda.launches["ntt_fwd"] == before["ntt_fwd"] + 3 * 4 + 2
+    assert ntt_cuda.launches["ntt_inv"] == before["ntt_inv"] + 4 + 1
+    assert {k[5] for k in log} >= {0, 3}
+    torch.cuda.synchronize()
+
+
+def test_limb_blocks_on_two_devices_equal_flat(card):
+    """A limb=2 mesh whose blocks lie on two devices, the card and the CPU:
+    the block away from the context's device runs an evaluator of the same
+    parameters there (``parallel/limb.py:on_device``: tables and keys
+    copied once), the collectives copy between the devices, and
+    relinearize -> rescale -> rotate_sum equals the flat evaluator's."""
+    import numpy as np
+
+    from reference_seal_backend_tpu_torch.evaluator.eval import Evaluator
+    from reference_seal_backend_tpu_torch.parallel import mesh as tmesh
+    from reference_seal_backend_tpu_torch.schemes import ckks as tckks
+    from reference_seal_backend_tpu_torch.schemes import keys as tkeys
+    from reference_seal_backend_tpu_torch.schemes import params as tparams
+
+    ctx = tparams.make_ckks_context(2048, mult_depth=2, sec_level=0, device=card)
+    ks = tkeys.keygen(ctx, seed=5, galois_elts=[pow(5, s, 4096) for s in (1, 2, 3)],
+                      need_relin=True)
+    enc, er = tckks.CkksEncoder(ctx), tckks.CkksEncryptor(ctx, ks, seed=5)
+    rng = np.random.default_rng(2)
+    a = er.encrypt_pt(enc.encode(rng.uniform(-1, 1, ctx.slots)))
+    ev = Evaluator(ctx, ks)
+
+    def chain(x):
+        return ev.rotate_sum(ev.rescale_to_next(ev.relinearize(ev.multiply(x, x))),
+                             [0, 1, 2, 3])
+
+    mesh = tmesh.make_mesh(2, devices=[card, torch.device("cpu")])
+    placed = tmesh.shard_ct(a, mesh, limb_axis="limb")
+    assert placed.data.blocks[0, 1].device.type == "cpu"
+    got = chain(placed)
+    assert got.data.blocks[0, 1].device.type == "cpu"
+    assert torch.equal(got.data.gather(card), chain(a).data)
+    assert list(ev.device_evs) == [torch.device("cpu")]

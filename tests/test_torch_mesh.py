@@ -3,8 +3,8 @@ and its placement of a ciphertext batch over a (dp, limb) mesh, against the
 JAX package: the process-grouped device order, mesh shapes, the devices an
 sp mesh gets (raising rather than co-locating shards silently, and
 starting at the card a caller names), the plain ``Evaluator`` on dp- and
-limb-sharded data (bit for bit the JAX single-device results), a
-limb-sharded key switch raising, and ``sp_shard`` through the C ABI's
+limb-sharded data (bit for bit the JAX single-device results), what the
+limb path leaves uncovered raising (the BFV BEHZ multiply), and ``sp_shard`` through the C ABI's
 params JSON.  Tolerance 0.
 
 Cold wall time of the file alone (empty JAX cache): see CHANGES.md."""
@@ -29,7 +29,7 @@ from reference_seal_backend_tpu_torch.evaluator.eval import Evaluator as TEvalua
 from reference_seal_backend_tpu_torch.parallel import mesh as tmesh
 from reference_seal_backend_tpu_torch.utils import device as tdevice
 
-from torch_port_util import assert_same_ct, contexts, jax_keyset_to_numpy
+from torch_port_util import assert_same_ct, bfv_contexts, contexts, jax_keyset_to_numpy
 
 N = 2048
 
@@ -152,21 +152,39 @@ def test_dp_and_limb_sharded_evaluator_ops(batch):
 
 
 def test_limb_sharded_key_switch_raises(batch):
-    """The digit lift couples limbs: over a limb-sharded ciphertext the key
-    switch's digit sum would read across blocks, so it raises (the JAX
-    package's GSPMD inserts all-gathers there; the port gathers nothing
-    silently), and so does running it per block."""
+    """What the limb path leaves uncovered raises, naming it, and gathers
+    nothing on the way: the BFV BEHZ multiply of limb-sharded ciphertexts
+    (its base conversion reads every q limb), and a key switch run per
+    block through ``shard_map`` (a limb block is not a batch of whole
+    polynomials).  The CKKS key switch and rescale over limb-sharded data
+    are covered: tests/test_torch_limb_*.py."""
+    from reference_seal_backend_tpu_torch.parallel import sp_eval
+    from reference_seal_backend_tpu_torch.schemes.core import Ciphertext
+
     tc, tk, _, _, tct = batch
     m = tmesh.make_mesh(8, devices=tdevice.mesh_devices("cpu", 8))
+    _, bc = bfv_contexts(N)
+    rng = np.random.default_rng(11)
+    data = np.stack([rng.integers(0, p, (4, 2, N)) for p in bc.data_primes], axis=-2)
+    bct = Ciphertext(data=torch.from_numpy(data.astype(np.int64)).to(torch.int32),
+                     level=bc.L, scale=1.0, is_ntt=True)
+    bsh = tmesh.shard_ct(bct, m, n_batch_axes=1, batch_axes=("dp",), limb_axis="limb")
+    bev = TEvaluator(bc, None)
+
+    def bfv_multiply():
+        with pytest.raises(NotImplementedError, match="BFV BEHZ multiply"):
+            bev.multiply(bsh, bsh)
+
+    assert not any(sp_eval.collective_stats(bfv_multiply).values())
     sh = tmesh.shard_ct(tct, m, n_batch_axes=1, batch_axes=(None,), limb_axis="limb")
     ev = TEvaluator(tc, tk)
     prod = ev.multiply(sh, sh)
-    with pytest.raises(NotImplementedError, match="sharded dim"):
-        ev.relinearize(prod)
-    with pytest.raises(NotImplementedError, match="sharded dim"):
-        ev.rescale_to_next(ev.multiply(sh, sh))
-    with pytest.raises(NotImplementedError, match="sharded dim"):
-        tmesh.shard_map(ev.relinearize, prod)
+
+    def per_block():
+        with pytest.raises(NotImplementedError, match="sharded dim"):
+            tmesh.shard_map(ev.relinearize, prod)
+
+    assert not any(sp_eval.collective_stats(per_block).values())
 
 
 def test_capi_params_json_sp_shard(monkeypatch):
