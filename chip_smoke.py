@@ -25,7 +25,8 @@ Phases (each prints one JSON line; any failure ends the run non-zero):
    ``capi_path`` (b) handed them: the views are noted while those paths
    run, not listed by hand (among them the BFV multiply's 10-limb views
    over q u Bsk at N = 8192, the limb blocks' windows from limb 3 at
-   N = 8192 and limb 7 at N = 16384, and the harness's own sizes).
+   N = 8192 and limb 7 at N = 16384, the BFV limb blocks' from limb 2 and
+   their 8-limb plans over a q window u Bsk, and the harness's own sizes).
    ``kernel_times`` (run last) both kernels timed at
    ``[64, 7, 8192]``, at the one-wave shapes of a 1 x 1 dot product, with the
    logistic-regression context's plan at N = 16384 and with a 14-limb plan at
@@ -90,12 +91,18 @@ Phases (each prints one JSON line; any failure ends the run non-zero):
    the logistic-regression context (14 + 2 limbs, G = 2),
    ``rotate_sum(rescale(relinearize(multiply)), range(8))``; (c)
    ``make_process_mesh(sp=2)`` and ``SpEvaluator(batch_axes=("dp",))``,
-   multiply -> relinearize -> rescale.  Each equal to the flat
-   ``Evaluator`` integer for integer.  Per case: host ms of the chain
-   beside the flat chain's (median of 3 warm calls), the collectives of
-   one chain, K1 / K2 launches of one warm chain, peak device memory; (a)
-   and (b) must launch both kernels, at the top block's first limb too,
-   and every transform must launch its kernel (no plain version).
+   multiply -> relinearize -> rescale; (d) (a)'s mesh, the BFV dot
+   product's context (N = 8192, 4 + 2 limbs, G = 2), a batch of 2 pairs of
+   100 integers mod t, ``accumulate(relinearize(multiply), 100)`` (the BEHZ
+   multiply per limb block), decoded exactly to the dot products mod t;
+   (e) (b)'s ciphertexts switched to 13 limbs, a level limb = 2 does not
+   divide (replicated over the limb axis), multiply -> relinearize.  Each
+   equal to the flat ``Evaluator`` integer for integer.  Per case: host ms
+   of the chain beside the flat chain's (median of 3 warm calls), the
+   collectives of one chain, K1 / K2 launches of one warm chain, peak
+   device memory; (a), (b), (d) and (e) must launch both kernels, (a),
+   (b) and (d) at the top block's first limb too, and every transform
+   must launch its kernel (no plain version).
 8. the ``kernels`` line (``launches``: the main-path run; ``sp_path_launches``:
    the sp runs of ``sp_path``; ``limb_path_launches``: the placed chains of
    ``limb_path``; ``capi_path_launches``: the ``rsbtpu_*`` calls of
@@ -179,6 +186,8 @@ LIMB_DEVICES = 4
 LIMB_DOT_N = 100
 LIMB_DOT_ATOL = 5e-5
 LIMB_TIMED = 3
+# (e): the logistic-regression ciphertext's level that limb = 2 does not divide
+LIMB_ODD_LEVEL = 13
 # NTT launches of one BEHZ multiply: both operands' inverse transforms, the
 # tensor product's forward and inverse over q u Bsk, the output's forward
 BEHZ_SWEEPS = 4
@@ -902,9 +911,13 @@ def phase_limb_path(device):
     context (G = 2, a digit group straddling the blocks), ``rotate_sum(
     rescale(relinearize(multiply)), range(8))``; (c) ``make_process_mesh(
     sp=2)`` with ``SpEvaluator(batch_axes=("dp",))``, multiply ->
-    relinearize -> rescale on (a)'s batch.  Every result equal to the flat
-    ``Evaluator``'s.  Returns the K1 / K2 launches of the placed runs and
-    the views they handed the kernels."""
+    relinearize -> rescale on (a)'s batch; (e) (b)'s ciphertexts switched
+    to ``LIMB_ODD_LEVEL`` limbs, multiply -> relinearize; (d) (a)'s mesh,
+    the registered BFV dot product context, a batch of 2 pairs of
+    ``LIMB_DOT_N`` integers mod t, ``accumulate(relinearize(multiply),
+    100)``, decoded exactly against the cleartext dot products mod t.
+    Every result equal to the flat ``Evaluator``'s.  Returns the K1 / K2
+    launches of the placed runs and the views they handed the kernels."""
     import dataclasses
 
     import numpy as np
@@ -913,7 +926,7 @@ def phase_limb_path(device):
     from reference_seal_backend_tpu_torch.evaluator import composite
     from reference_seal_backend_tpu_torch.parallel import mesh as mesh_mod
     from reference_seal_backend_tpu_torch.parallel import sp_eval
-    from reference_seal_backend_tpu_torch.schemes import ckks
+    from reference_seal_backend_tpu_torch.schemes import bfv, ckks
     from reference_seal_backend_tpu_torch.utils.device import (
         VIRTUAL_DEVICES_ENV,
         mesh_devices,
@@ -988,6 +1001,48 @@ def phase_limb_path(device):
             launches[k] += launched[k]
         views.update(noted)
 
+        # (e): (b)'s ciphertexts switched to 13 limbs, a level limb = 2 does
+        # not divide: replicated over the limb axis by one all-gather each
+        odd_chain = lambda x, y: lev.relinearize(lev.multiply(
+            lev.mod_switch_to(x, LIMB_ODD_LEVEL), lev.mod_switch_to(y, LIMB_ODD_LEVEL)))
+        row, _, launched, noted = _limb_case(
+            "e", odd_chain, (la, lb), (place2(la), place2(lb)), ungather, device, 0)
+        row.update(mesh=mesh2.shape, level=LIMB_ODD_LEVEL)
+        cases["e_limb2_logreg_odd_level"] = row
+        for k in launches:
+            launches[k] += launched[k]
+        views.update(noted)
+
+        # (d): the registered BFV dot product context on (a)'s mesh, exact
+        t = time.perf_counter()
+        bdot = engine.create_benchmark(engine.find("bfv_dot_product_latency"), None)
+        bctx, bev = bdot.ctx, bdot.ev
+        if (bctx.n, bctx.L, bctx.n_special, bctx.digit_group) != (8192, 4, 2, 2):
+            fail(f"limb_path: BFV dot context changed: {bctx.n} {bctx.L} "
+                 f"{bctx.n_special} {bctx.digit_group}")
+        benc = bfv.encoder_for(bctx)
+        ints = rng.integers(0, bctx.t, (2, 2, LIMB_DOT_N))
+        x, y = (bdot.encryptor.encrypt_pt(dataclasses.replace(
+            benc.encode(ints[i, 0]),
+            data=torch.stack([benc.encode(ints[i, j]).data for j in range(2)])))
+            for i in range(2))
+        setup["bfv_dot"] = time.perf_counter() - t
+        bfv_chain = lambda x, y: composite.accumulate(
+            bev, bev.relinearize(bev.multiply(x, y)), LIMB_DOT_N)
+        row, want, launched, noted = _limb_case(
+            "d", bfv_chain, (x, y), (place(x), place(y)), ungather, device,
+            bctx.L // mesh.shape["limb"])
+        got = bdot.decryptor.decrypt(want)[:, 0].astype(np.int64) % bctx.t
+        exact = (ints[0] * ints[1]).sum(axis=-1) % bctx.t
+        if not np.array_equal(got, exact):
+            fail(f"limb_path (d): decode {got.tolist()} is not the dot products "
+                 f"mod t {exact.tolist()}")
+        row.update(mesh=mesh.shape, decoded=got.tolist(), exact_mod_t=exact.tolist())
+        cases["d_dp2_limb2_bfv_dot"] = row
+        for k in launches:
+            launches[k] += launched[k]
+        views.update(noted)
+
         # (c): dryrun_multichip step 4, the process-aware dp x sp mesh
         pmesh = mesh_mod.make_process_mesh(
             sp=2, devices=mesh_devices(device, LIMB_DEVICES))
@@ -1004,7 +1059,8 @@ def phase_limb_path(device):
             os.environ.pop(VIRTUAL_DEVICES_ENV, None)
         else:
             os.environ[VIRTUAL_DEVICES_ENV] = saved
-    for key in ("a_dp2_limb2_dot", "b_limb2_logreg"):
+    for key in ("a_dp2_limb2_dot", "b_limb2_logreg", "d_dp2_limb2_bfv_dot",
+                "e_limb2_logreg_odd_level"):
         if not all(cases[key]["kernel_launches_per_warm_chain"].values()):
             fail(f"limb_path: {key} launched no K1 or no K2: "
                  f"{cases[key]['kernel_launches_per_warm_chain']}")

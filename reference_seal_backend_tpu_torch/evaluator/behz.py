@@ -27,6 +27,16 @@ inverse transforms of the tensor product over q u Bsk on one limb axis
 them the arithmetic is plain tensor code in the wide domain of
 ``ops/modops.py`` (int64 values in [0, 2**32), masked where a uint32
 would wrap); the tables are kept wide on the device for that reason.
+
+Row windows.  Every step that reads q limbs takes the first q row ``lo``
+of the rows it is given (``r`` of them; all ``k`` in the flat multiply),
+so that a block of a limb-sharded ciphertext (``parallel/limb.py``) runs
+these same functions on its own rows.  The two conversions that sum over
+every q limb are split: a partial part over the window
+(:func:`_conv_partial`, :func:`_fbc_partial`), whose sums the limb blocks
+add in an all-reduce, and a finishing part after it (:func:`_conv_finish`,
+:func:`_canon`) that reduces fully, so that any representative of a sum
+gives the same integers.  The flat multiply is the window ``(0, k)``.
 """
 
 from __future__ import annotations
@@ -151,6 +161,37 @@ def tables_for(ctx: BfvContext) -> BehzTables:
     return BehzTables(ctx)
 
 
+@functools.lru_cache(maxsize=None)
+def window(tb: BehzTables, lo: int, rows: int):
+    """The tensor base of the q rows ``[lo, lo + rows)`` and all of Bsk:
+    ``(plan, p, pni, r1)``, its NTT plan over the stacked limb axis (so
+    each transform of the tensor product is one launch, as the flat
+    multiply's), its moduli, Montgomery constants and R-mod-p Shoup pair
+    as ``[rows + kb, 1]`` columns.  ``(0, k)`` is the flat multiply's
+    ``mult_plan`` / ``all_*``; another window gets a plan of its own
+    primes (cached per window, as ``make_plan`` caches every plan)."""
+    k = tb.ctx.L
+    if (lo, rows) == (0, k):
+        return tb.mult_plan, tb.all_p, tb.all_pni, tb.all_r1
+    win = slice(lo, lo + rows)
+    cat = lambda q, b: torch.cat([q[win], b], dim=0)
+    return (
+        ntt_mod.make_plan(tb.ctx.n, tb.ctx.data_primes[win] + tb.ctx.bsk_primes,
+                          tb.ctx.device),
+        cat(tb.q_p, tb.bsk_p),
+        cat(tb.q_pni, tb.bsk_pni),
+        (cat(tb.q_r1[0], tb.bsk_r1[0]), cat(tb.q_r1[1], tb.bsk_r1[1])),
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def conv_moduli(tb: BehzTables) -> torch.Tensor:
+    """``[kb + 1, 1]``: the Bsk primes and m_tilde = 2**16, the moduli of
+    :func:`_conv_partial`'s two sums stacked as rows (an all-reduce of
+    them mod these is exact: see there)."""
+    return torch.cat([tb.bsk_p, torch.full_like(tb.bsk_p[:1], _MTILDE)], dim=0)
+
+
 # -- wide-domain steps (int64 tensors holding uint32 values) ----------------
 
 def _pairwise_sum(x: torch.Tensor, axis: int, add) -> torch.Tensor:
@@ -183,18 +224,35 @@ def _canon(x, p):
     return x - (x >= p) * p
 
 
-def _conv_to_bsk_mtilde(tb: BehzTables, x_q: torch.Tensor) -> torch.Tensor:
-    """x (normal coeff, [..., k, N] over q) -> x in Bsk, exactly (the
-    m_tilde Montgomery reduction cancels the conversion overflow)."""
-    y = modops.w_shoup_mul(x_q, *tb.mtilde_qhinv, tb.q_p)
+def _conv_partial(tb: BehzTables, x_q: torch.Tensor, lo: int = 0):
+    """Step 1's sums over the q rows ``[lo, lo + r)`` of ``x_q``
+    ``[..., r, N]`` (normal coefficients): ``(xs, xt)``, the Bsk sum
+    ``[..., kb, N]`` in the lazy range [0, 2p) and the m_tilde sum
+    ``[..., N]`` masked to 16 bits.  Sums over disjoint windows add up to
+    the whole one's: ``xs`` modulo each Bsk prime (any representative:
+    its one consumer reduces fully), ``xt`` modulo 2**16 (only its low 16
+    bits are read, so a masked partial is a residue mod 2**16 and adds as
+    one; it is never reduced mod a prime)."""
+    win = slice(lo, lo + x_q.shape[-2])
+    w, ws = tb.mtilde_qhinv
+    y = modops.w_shoup_mul(x_q, w[win], ws[win], tb.q_p[win])
     # x*_j = sum_i y_i * (qhat_i mod p_j), p_j in Bsk — lazy terms and
     # tree; xs stays in [0, 2p): its only consumer is a Shoup product
+    hw, hws = tb.qh_mod_bsk
     terms = modops.w_shoup_mul_lazy(
-        y[..., :, None, :], *tb.qh_mod_bsk, tb.bsk_p
-    )  # [..., k, kb, N]
+        y[..., :, None, :], hw[win], hws[win], tb.bsk_p
+    )  # [..., r, kb, N]
     xs = _mod_sum_axis_lazy(terms, tb.bsk_p, axis=-3)
     # x*_mtilde = sum_i y_i * (qhat_i mod 2^16): only the low 16 bits count
-    xt = ((y & _MASK16) * tb.qh_mod_mtilde).sum(dim=-2) & _MASK16
+    xt = ((y & _MASK16) * tb.qh_mod_mtilde[win]).sum(dim=-2) & _MASK16
+    return xs, xt
+
+
+def _conv_finish(tb: BehzTables, xs: torch.Tensor, xt: torch.Tensor) -> torch.Tensor:
+    """Step 2 on the whole sums of :func:`_conv_partial`: the m_tilde
+    Montgomery reduction, ``[..., kb, N]`` canonical.  Reads ``xt`` mod
+    2**16 only and ``xs`` through Shoup products only, so any
+    representative of either sum gives the same integers."""
     r = (xt * tb.neg_qinv_mtilde) & _MASK16  # = -alpha (mod m_tilde)
     flag = (r > _HALF_MTILDE)[..., None, :]
     r = r[..., None, :]
@@ -206,22 +264,43 @@ def _conv_to_bsk_mtilde(tb: BehzTables, x_q: torch.Tensor) -> torch.Tensor:
     return modops.w_mod_sub(out, flag * tb.q_mod_bsk, tb.bsk_p)
 
 
+def _conv_to_bsk_mtilde(tb: BehzTables, x_q: torch.Tensor) -> torch.Tensor:
+    """x (normal coeff, [..., k, N] over q) -> x in Bsk, exactly (the
+    m_tilde Montgomery reduction cancels the conversion overflow)."""
+    return _conv_finish(tb, *_conv_partial(tb, x_q))
+
+
+def _fbc_partial(tb: BehzTables, x_q: torch.Tensor, pair, lo: int = 0) -> torch.Tensor:
+    """The plain fast base conversion's sum over the q rows ``[lo, lo +
+    r)`` of ``x_q`` ``[..., r, N]``: ``[..., kb, N]`` in [0, 2p).  ``pair``
+    is the Shoup constant of the qhat^-1 pre-multiply (``[k, 1]``, cut to
+    the window here)."""
+    win = slice(lo, lo + x_q.shape[-2])
+    y = modops.w_shoup_mul(x_q, pair[0][win], pair[1][win], tb.q_p[win])
+    hw, hws = tb.qh_mod_bsk
+    terms = modops.w_shoup_mul_lazy(
+        y[..., :, None, :], hw[win], hws[win], tb.bsk_p
+    )
+    return _mod_sum_axis_lazy(terms, tb.bsk_p, axis=-3)
+
+
 def _fbc_q_to_bsk(tb: BehzTables, x_q: torch.Tensor, pair) -> torch.Tensor:
     """Plain fast base conversion q -> Bsk (may carry +alpha*q, alpha < k,
     absorbed as noise by the surrounding floor).  ``pair`` is the Shoup
     constant of the qhat^-1 pre-multiply (``tb.t_qhinv``: the xt scaling
     rides it)."""
-    y = modops.w_shoup_mul(x_q, *pair, tb.q_p)
-    terms = modops.w_shoup_mul_lazy(
-        y[..., :, None, :], *tb.qh_mod_bsk, tb.bsk_p
-    )
     # canonical: the caller subtracts it
-    return _canon(_mod_sum_axis_lazy(terms, tb.bsk_p, axis=-3), tb.bsk_p)
+    return _canon(_fbc_partial(tb, x_q, pair), tb.bsk_p)
 
 
-def _sk_to_q(tb: BehzTables, y_bsk: torch.Tensor) -> torch.Tensor:
+def _sk_to_q(tb: BehzTables, y_bsk: torch.Tensor, lo: int = 0,
+             rows: int = None) -> torch.Tensor:
     """Exact Shenoy-Kumaresan conversion of (possibly centered-negative)
-    y [..., kb, N] over Bsk = B u {m_sk} into base q: [..., k, N]."""
+    y [..., kb, N] over Bsk = B u {m_sk} into the q rows ``[lo, lo +
+    rows)`` (default all k): [..., rows, N].  Reads all of Bsk, which
+    every limb block holds, so a window needs no other block's rows."""
+    win = slice(lo, lo + (tb.ctx.L if rows is None else rows))
+    q_p = tb.q_p[win]
     ka = len(tb.ctx.aux_primes)
     y_B = y_bsk[..., :ka, :]
     y_msk = y_bsk[..., ka:, :]
@@ -234,17 +313,19 @@ def _sk_to_q(tb: BehzTables, y_bsk: torch.Tensor) -> torch.Tensor:
         modops.w_mod_sub(conv_msk, y_msk, msk_p), *tb.Binv_msk, msk_p
     )  # [..., 1, N] in [0, m_sk)
     flag = alpha > tb.half_msk
+    bw, bws = tb.Bh_mod_q
     terms_q = modops.w_shoup_mul_lazy(
-        yp[..., :, None, :], *tb.Bh_mod_q, tb.q_p
-    )  # [..., ka, k, N]
-    s = _canon(_mod_sum_axis_lazy(terms_q, tb.q_p, axis=-3), tb.q_p)
+        yp[..., :, None, :], bw[:, win], bws[:, win], q_p
+    )  # [..., ka, rows, N]
+    s = _canon(_mod_sum_axis_lazy(terms_q, q_p, axis=-3), q_p)
     alpha_term = modops.w_shoup_mul(
-        modops.w_barrett_reduce_u32(alpha, tb.q_p, tb.q_mu),
-        *tb.B_mod_q,
-        tb.q_p,
+        modops.w_barrett_reduce_u32(alpha, q_p, tb.q_mu[win]),
+        tb.B_mod_q[0][win],
+        tb.B_mod_q[1][win],
+        q_p,
     )
-    out = modops.w_mod_sub(s, alpha_term, tb.q_p)
-    return modops.w_mod_add(out, flag * tb.msk_B_mod_q, tb.q_p)
+    out = modops.w_mod_sub(s, alpha_term, q_p)
+    return modops.w_mod_add(out, flag * tb.msk_B_mod_q[win], q_p)
 
 
 def _tensor(x, y, p, pni):
@@ -260,48 +341,71 @@ def _tensor(x, y, p, pni):
     return torch.stack([c0, c1, c2], dim=-3)
 
 
-def bfv_multiply(ctx: BfvContext, a: Ciphertext, b: Ciphertext) -> Ciphertext:
-    """BFV ct-ct multiply (no relinearization): 3-component result.
-    Leading batch axes of ``a`` and ``b`` broadcast."""
-    tb = tables_for(ctx)
-    k = ctx.L
-    if a.size != 2 or b.size != 2:
-        raise NotImplementedError("bfv multiply expects size-2 inputs")
-    plan, mp = ctx.plan, tb.mult_plan
+def operands(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The two operands' data broadcast against each other and stacked on
+    a new leading axis: ``[2ab, ..., 2, rows, N]``."""
+    shape = torch.broadcast_shapes(a.shape, b.shape)
+    return torch.stack([a.expand(shape), b.expand(shape)], dim=0)
+
+
+def to_coeff(ctx: BfvContext, tb: BehzTables, ab: torch.Tensor, lo: int = 0):
+    """The operands' q rows ``[lo, lo + r)`` (NTT Montgomery) -> normal
+    coefficients, wide: one inverse transform at ``lo``, ``from_mont``."""
+    win = slice(lo, lo + ab.shape[-2])
+    return modops.w_mont_mul(
+        modops.wide(ctx.plan.inv(ab, lo=lo)), 1, tb.q_p[win], tb.q_pni[win]
+    )
+
+
+def tensor_product(tb: BehzTables, ab_q: torch.Tensor, ab_bsk: torch.Tensor,
+                   lo: int = 0):
+    """Step 3 of the multiply on the q rows ``[lo, lo + r)`` and all of
+    Bsk: ``(prod_q [..., 3, r, N], prod_bsk [..., 3, kb, N])``, normal
+    coefficients.  One forward and one inverse sweep over the window's
+    tensor base (:func:`window`)."""
     w = modops.wide
-
-    shape = torch.broadcast_shapes(a.data.shape, b.data.shape)
-    ab = torch.stack([a.data.expand(shape), b.data.expand(shape)], dim=0)
-    # [2ab, ..., 2, k, N] NTT Montgomery -> normal coefficients
-    ab_q = modops.w_mont_mul(w(plan.inv(ab, lo=0)), 1, tb.q_p, tb.q_pni)
-    ab_bsk = _conv_to_bsk_mtilde(tb, ab_q)  # [2ab, ..., 2, kb, N]
-
-    x_all = torch.cat([ab_q, ab_bsk], dim=-2)  # [2ab, ..., 2, k+kb, N]
+    r = ab_q.shape[-2]
+    plan, p, pni, r1 = window(tb, lo, r)
+    x_all = torch.cat([ab_q, ab_bsk], dim=-2)  # [2ab, ..., 2, r+kb, N]
     # Operand a enters Montgomery form (xR) so that the dyadic Montgomery
     # products land in normal form; operand b stays normal.
-    x_all = torch.cat(
-        [modops.w_shoup_mul(x_all[:1], *tb.all_r1, tb.all_p), x_all[1:]],
-        dim=0,
-    )
-    ntt_all = w(mp.fwd(modops.narrow(x_all), lo=0))
-    prod = w(mp.inv(
-        modops.narrow(_tensor(ntt_all[0], ntt_all[1], tb.all_p, tb.all_pni)),
-        lo=0,
-    ))  # [..., 3, k+kb, N] normal coefficients
-    prod_q = prod[..., :k, :]
-    prod_bsk = prod[..., k:, :]
+    x_all = torch.cat([modops.w_shoup_mul(x_all[:1], *r1, p), x_all[1:]], dim=0)
+    ntt_all = w(plan.fwd(modops.narrow(x_all), lo=0))
+    prod = w(plan.inv(
+        modops.narrow(_tensor(ntt_all[0], ntt_all[1], p, pni)), lo=0
+    ))  # [..., 3, r+kb, N] normal coefficients
+    return prod[..., :r, :], prod[..., r:, :]
 
-    # scale by t, floor-divide by q (in Bsk), convert exactly back to q
+
+def floor_bsk(tb: BehzTables, prod_bsk: torch.Tensor, fbc: torch.Tensor):
+    """Step 4: scale by t and floor-divide by q in Bsk, given the
+    canonical fast base conversion ``fbc`` of the q-side product (times t)."""
     tc_bsk = modops.w_shoup_mul(prod_bsk, *tb.t_mod_bsk, tb.bsk_p)
-    y_bsk = modops.w_shoup_mul(
-        modops.w_mod_sub(
-            tc_bsk, _fbc_q_to_bsk(tb, prod_q, tb.t_qhinv), tb.bsk_p
-        ),
-        *tb.qinv_bsk,
-        tb.bsk_p,
+    return modops.w_shoup_mul(
+        modops.w_mod_sub(tc_bsk, fbc, tb.bsk_p), *tb.qinv_bsk, tb.bsk_p
     )
-    out_q = _sk_to_q(tb, y_bsk)
-    out_ntt = plan.fwd(
-        modops.narrow(modops.w_shoup_mul(out_q, *tb.q_r1, tb.q_p)), lo=0
-    )
-    return Ciphertext(data=out_ntt, level=k, scale=1.0, is_ntt=True)
+
+
+def to_ntt(ctx: BfvContext, tb: BehzTables, out_q: torch.Tensor, lo: int = 0):
+    """The output's q rows ``[lo, lo + r)`` back to the at-rest NTT
+    Montgomery form: the Montgomery entry and one forward transform."""
+    win = slice(lo, lo + out_q.shape[-2])
+    return ctx.plan.fwd(modops.narrow(modops.w_shoup_mul(
+        out_q, tb.q_r1[0][win], tb.q_r1[1][win], tb.q_p[win])), lo=lo)
+
+
+def bfv_multiply(ctx: BfvContext, a: Ciphertext, b: Ciphertext) -> Ciphertext:
+    """BFV ct-ct multiply (no relinearization): 3-component result.
+    Leading batch axes of ``a`` and ``b`` broadcast.  The steps of a limb
+    block (``parallel/limb.py:bfv_multiply``) at the window ``(0, k)``."""
+    tb = tables_for(ctx)
+    if a.size != 2 or b.size != 2:
+        raise NotImplementedError("bfv multiply expects size-2 inputs")
+    # [2ab, ..., 2, k, N] NTT Montgomery -> normal coefficients
+    ab_q = to_coeff(ctx, tb, operands(a.data, b.data))
+    ab_bsk = _conv_to_bsk_mtilde(tb, ab_q)  # [2ab, ..., 2, kb, N]
+    prod_q, prod_bsk = tensor_product(tb, ab_q, ab_bsk)
+    # scale by t, floor-divide by q (in Bsk), convert exactly back to q
+    y_bsk = floor_bsk(tb, prod_bsk, _fbc_q_to_bsk(tb, prod_q, tb.t_qhinv))
+    out_ntt = to_ntt(ctx, tb, _sk_to_q(tb, y_bsk))
+    return Ciphertext(data=out_ntt, level=ctx.L, scale=1.0, is_ntt=True)

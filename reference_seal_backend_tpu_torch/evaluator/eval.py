@@ -165,16 +165,15 @@ class Evaluator:
     def multiply(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
         """ct-ct multiply WITHOUT relinearization (3-component result),
         the bare multiply of the eltwise workload.  Under BFV it is the
-        BEHZ multiply (evaluator/behz.py)."""
+        BEHZ multiply (evaluator/behz.py); of data placed on a mesh,
+        ``parallel/limb.py:bfv_multiply`` (the same steps per limb block,
+        the q -> Bsk sums met in all-reduces)."""
         _check_binop(a, b, check_scale=False)
         if a.size != 2 or b.size != 2:
             raise NotImplementedError("multiply expects size-2 inputs")
         if self.ctx.scheme == "bfv":
             if isinstance(a.data, ShardedTensor) or isinstance(b.data, ShardedTensor):
-                raise NotImplementedError(
-                    "the BFV BEHZ multiply of ciphertexts placed on a mesh: "
-                    "its base conversion reads every q limb to reach Bsk; "
-                    "gather() the data first")
+                return limb.bfv_multiply(self, a, b)
             return behz.bfv_multiply(self.ctx, a, b)
         l = a.level
         p, pni = self.ctx.consts(0, l)
@@ -582,7 +581,9 @@ class Evaluator:
 
     def _drop_rows(self, data: torch.Tensor, level: int) -> torch.Tensor:
         """The first ``level`` limbs of ``data`` [..., l, N] (on a mesh:
-        ``parallel/limb.py:drop_to``, the blocks evened out after)."""
+        ``parallel/limb.py:drop_to``, the blocks evened out after, or the
+        stack replicated over the limb axis where the level does not split
+        into equal blocks)."""
         if isinstance(data, ShardedTensor):
             return limb.drop_to(data, level)
         return data[..., :level, :]

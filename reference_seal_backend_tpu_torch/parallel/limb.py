@@ -1,5 +1,5 @@
-"""Limb-sharded ciphertexts: key switching, rotations, rescale and mod
-switch with the limb axis of the data split over a mesh.
+"""Limb-sharded ciphertexts: key switching, rotations, rescale, mod switch
+and the BFV multiply with the limb axis of the data split over a mesh.
 
 Counterpart of the JAX package's plain ``Evaluator`` running under GSPMD on
 data placed by ``parallel/mesh.py:shard_ct(..., limb_axis="limb")``.  There
@@ -39,33 +39,54 @@ Rescale and mod switch.  The dropped limb's row is inverse-transformed in
 the block that holds it (K2 at the limb), handed to the group in one
 all-gather, and every block scales its own rows (K1 at its offset).  After
 the last drop of a rescale group, and after a mod switch, the blocks are
-evened out again by one collective-permute (``mesh.rebalance``); a level
-the limb axis does not divide raises.  Uneven blocks are not kept: the
-``ShardedTensor`` local map, its constant cutting and ``gather`` all
-assume equal consecutive blocks, and the evening out keeps that true for
-every op outside this module at the price of one permute of at most a
-rescale group's rows.
+settled (:func:`_settle`): where the new level splits into equal blocks,
+one collective-permute evens them out (``mesh.rebalance``); where it does
+not, one all-gather hands every block of the group the whole stack, and
+the result is replicated over the limb axis (``spec[-2]`` None, the batch
+axes kept), as GSPMD returns it.  Later ops then run on whole polynomials
+block by block, as on a dp-only placement, with no collective over the
+limb axis.  Uneven blocks are not kept: the ``ShardedTensor`` local map,
+its constant cutting (``mesh._local_part``) and ``gather`` all assume
+equal consecutive blocks, and an odd level would make every later op pay
+for the unevenness; replicating costs one all-gather of at most the
+level's rows, once.
+
+The BFV BEHZ multiply (:func:`bfv_multiply`).  Each block runs
+``evaluator/behz.py``'s steps on its q window: its rows to coefficients
+(K2 at its first limb), its share of the q -> Bsk conversion, and, after
+one all-reduce has summed the shares, all of Bsk, which every block then
+holds (as every block holds the special rows after a key switch's
+all-reduce).  The tensor product runs over the window and Bsk on one
+plan of those primes (one K1 and one K2 launch, ``behz.window``); the
+floor's q -> Bsk conversion is summed by a second all-reduce; the exact
+Shenoy-Kumaresan conversion back to q reads only Bsk, so each block
+produces its own q rows and returns them to NTT form (K1 at its first
+limb).  Two all-reduces, no all-gather: no block ever holds another
+block's q rows.  A block of whole polynomials (a dp-only placement, or
+data replicated over the limb axis) runs the flat multiply.
 
 The switch keys and the context's tables are whole on every device of the
 mesh: a block on another device than the context's runs an evaluator of
 the same parameters there (:func:`on_device`: the keys copied once per
-device, not per use).
-
-Not covered: the BFV BEHZ multiply (``Evaluator.multiply`` raises on
-placed BFV data); the flat evaluator's ops that run block by block through
-the local map (add, multiply, the plaintext ops) need nothing here.
+device, not per use; the BEHZ tables are those of the context there).
+The flat evaluator's ops that run block by block through the local map
+(add, the CKKS multiply, the plaintext ops) need nothing here.
 """
 
 from __future__ import annotations
 
+from dataclasses import replace
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from reference_seal_backend_tpu_torch.evaluator import behz
+from reference_seal_backend_tpu_torch.ops import modops
 from reference_seal_backend_tpu_torch.ops import ntt as ntt_mod
 from reference_seal_backend_tpu_torch.parallel import mesh as mesh_mod
 from reference_seal_backend_tpu_torch.parallel.mesh import ShardedTensor
+from reference_seal_backend_tpu_torch.schemes.core import Ciphertext
 from reference_seal_backend_tpu_torch.schemes.params import context_on
 
 
@@ -211,16 +232,84 @@ def rescale(ev, data: ShardedTensor, level: int, group: int) -> ShardedTensor:
             keep = blk[..., : max(0, min(blk.shape[-2], drop - lo)), :]
             blocks[c] = on_device(ev, blk.device)._scale_by_dropped(
                 keep, v[c], drop, lo) if keep.shape[-2] else keep
-    return ShardedTensor(mesh_mod.rebalance(blocks, mesh, axis, dim=-2), mesh, data.spec)
+    return _settle(blocks, data, axis)
 
 
 def drop_to(data: ShardedTensor, level: int) -> ShardedTensor:
     """The first ``level`` limbs of limb-sharded ``data`` ``[..., l, N]``,
-    the blocks evened out (one collective-permute where rows move)."""
+    settled (:func:`_settle`)."""
     axis, rows = layout(data)
     blocks = _new_blocks(data)
     for c in mesh_mod._coords(data.mesh):
         lo = _first_limb(data, axis, rows, c)
         blocks[c] = data.blocks[c][..., : max(0, min(rows, level - lo)), :]
-    return ShardedTensor(
-        mesh_mod.rebalance(blocks, data.mesh, axis, dim=-2), data.mesh, data.spec)
+    return _settle(blocks, data, axis)
+
+
+def _settle(blocks: np.ndarray, x: ShardedTensor, axis) -> ShardedTensor:
+    """Blocks of ``x``'s layout that lost rows from the top, as a
+    ``ShardedTensor``: evened out over ``axis`` where their total splits
+    into equal blocks (one collective-permute where rows move), else
+    replicated over it (one all-gather; the limb dim unsharded)."""
+    mesh = x.mesh
+    total = sum(blocks[c].shape[-2] for c in mesh_mod._groups(mesh, axis)[0])
+    if total % (mesh.shape[axis] if axis else 1) == 0:
+        return ShardedTensor(mesh_mod.rebalance(blocks, mesh, axis, dim=-2), mesh, x.spec)
+    return ShardedTensor(mesh_mod.all_gather_dim(blocks, mesh, axis, dim=-2), mesh,
+                         x.spec[:-2] + (None, x.spec[-1]))
+
+
+def bfv_multiply(ev, a: Ciphertext, b: Ciphertext) -> Ciphertext:
+    """``Evaluator.multiply`` of BFV ciphertexts placed alike on a mesh
+    (``behz.bfv_multiply`` per limb block): the 3-component result, placed
+    as the operands.  Two all-reduces over the limb axis (the input's and
+    the floor's q -> Bsk sums, the m_tilde sum stacked into the first as a
+    row of modulus 2**16); none where the blocks hold whole polynomials."""
+    x, y = a.data, b.data
+    if not (isinstance(x, ShardedTensor) and isinstance(y, ShardedTensor)
+            and x.mesh is y.mesh and x.spec == y.spec):
+        raise NotImplementedError(
+            "the BFV multiply of ciphertexts placed differently (or one not "
+            "placed): place both alike with mesh.shard_ct")
+    torch.broadcast_shapes(x.shape, y.shape)  # each block broadcasts its own
+    axis, rows = layout(x)
+    mesh, coords = x.mesh, mesh_mod._coords(x.mesh)
+    k = ev.ctx.L
+    out = _new_blocks(x)
+    if rows == k:  # whole polynomials in every block
+        for c in coords:
+            evc = on_device(ev, x.blocks[c].device)
+            out[c] = behz.bfv_multiply(
+                evc.ctx, replace(a, data=x.blocks[c]), replace(b, data=y.blocks[c])).data
+        return Ciphertext(ShardedTensor(out, mesh, x.spec), level=k, scale=1.0, is_ntt=True)
+
+    def tables(c):
+        evc = on_device(ev, x.blocks[c].device)
+        return evc.ctx, behz.tables_for(evc.ctx), _first_limb(x, axis, rows, c)
+
+    # the operands' q rows to coefficients, their share of q -> Bsk
+    ab_q, parts = _new_blocks(x), _new_blocks(x)
+    for c in coords:
+        ctx, tb, lo = tables(c)
+        ab_q[c] = behz.to_coeff(ctx, tb, behz.operands(x.blocks[c], y.blocks[c]), lo)
+        xs, xt = behz._conv_partial(tb, ab_q[c], lo)
+        parts[c] = modops.narrow(torch.cat([xs, xt[..., None, :]], dim=-2))
+    tb0 = behz.tables_for(ev.ctx)
+    kb = len(ev.ctx.bsk_primes)
+    # lazy sums, as the flat multiply's trees (every BEHZ prime < 2**30)
+    conv = mesh_mod.all_reduce_mod(parts, mesh, axis, behz.conv_moduli(tb0), True)
+    # all of Bsk in every block: the tensor product over the window and Bsk
+    prod_bsk = _new_blocks(x)
+    for c in coords:
+        ctx, tb, lo = tables(c)
+        s = modops.wide(conv[c])
+        ab_bsk = behz._conv_finish(tb, s[..., :kb, :], s[..., kb, :])
+        prod_q, prod_bsk[c] = behz.tensor_product(tb, ab_q[c], ab_bsk, lo)
+        parts[c] = modops.narrow(behz._fbc_partial(tb, prod_q, tb.t_qhinv, lo))
+    fbc = mesh_mod.all_reduce_mod(parts, mesh, axis, tb0.bsk_p, True)
+    # the floor in Bsk, then each block's own q rows back to NTT form
+    for c in coords:
+        ctx, tb, lo = tables(c)
+        y_bsk = behz.floor_bsk(tb, prod_bsk[c], behz._canon(modops.wide(fbc[c]), tb.bsk_p))
+        out[c] = behz.to_ntt(ctx, tb, behz._sk_to_q(tb, y_bsk, lo, rows), lo)
+    return Ciphertext(ShardedTensor(out, mesh, x.spec), level=k, scale=1.0, is_ntt=True)

@@ -17,12 +17,13 @@ on the block's device.  An operation that would read across a sharded dim,
 or has no local form (a whole transform, a kernel), raises
 ``NotImplementedError`` naming it: there is no implicit gather.  Whole
 functions of a dp-sharded batch run per block through :func:`shard_map`;
-the evaluator's key switch, rotations, rescale and mod switch of limb-sharded
-data run through ``parallel/limb.py``.  Data moves between blocks only
-through the explicit collectives here (:meth:`ShardedTensor.gather`,
-:func:`gather_index`, :func:`roll_segments` for the sp layout;
-:func:`all_gather_dim`, :func:`all_reduce_mod`, :func:`rebalance` for the
-limb path) and the sharded NTT's all-to-all (``parallel/sharded_ntt.py``),
+the evaluator's key switch, rotations, rescale, mod switch and BFV
+multiply of limb-sharded data run through ``parallel/limb.py``.  Data
+moves between blocks only through the explicit collectives here
+(:meth:`ShardedTensor.gather`, :func:`gather_index`, :func:`roll_segments`
+for the sp layout; :func:`all_gather_dim`, :func:`all_reduce_mod`,
+:func:`rebalance` for the limb path) and the sharded NTT's all-to-all
+(``parallel/sharded_ntt.py``),
 each counted in :data:`counts` while ``parallel/sp_eval.py:collective_stats``
 runs.
 
@@ -741,7 +742,12 @@ def all_reduce_mod(blocks: np.ndarray, mesh: Mesh, axis: Optional[str],
     every prime below 2**30), else canonical (modular adds).  The sum is
     congruent to a sum of the same terms in any other order, not always
     the same representative: a consumer that reduces fully sees no
-    difference.  One all-reduce."""
+    difference.  A row of modulus 2**16 is summed mod 2**16 exactly (its
+    terms below 2**16, or 2**17 lazily; 2**16 is no prime, but an add and a
+    conditional subtraction are exact mod any modulus): the BFV multiply
+    stacks the m_tilde sum of its q -> Bsk conversion into the Bsk sums as
+    such a row (``behz.conv_moduli``), so one all-reduce carries both.
+    One all-reduce."""
     out = np.empty(mesh.devices.shape, dtype=object)
     for group in _groups(mesh, axis):
         done: Dict[torch.device, torch.Tensor] = {}
@@ -770,7 +776,8 @@ def rebalance(blocks: np.ndarray, mesh: Mesh, axis: Optional[str],
     that hold its entries; a block whose entries stay in place is kept as
     it is.  One collective-permute where a piece crosses blocks, none
     where nothing moves.  Raises ``NotImplementedError`` where the dim
-    does not split evenly (``ShardedTensor`` holds equal blocks only)."""
+    does not split evenly (``ShardedTensor`` holds equal blocks only;
+    ``parallel/limb.py:_settle`` replicates such a stack instead)."""
     out = np.empty(mesh.devices.shape, dtype=object)
     moved = False
     for group in _groups(mesh, axis):

@@ -312,12 +312,7 @@ class SpEvaluator:
         def scale_down(x, dev):  # ×t, floor-divide by q, Bsk -> q, enter Mont
             t = self._behz_on(dev)
             prod_q, prod_bsk = x[..., :k, :], x[..., k:, :]
-            tc_bsk = modops.w_shoup_mul(prod_bsk, *t.t_mod_bsk, t.bsk_p)
-            y_bsk = modops.w_shoup_mul(
-                modops.w_mod_sub(
-                    tc_bsk, behz._fbc_q_to_bsk(t, prod_q, t.t_qhinv), t.bsk_p),
-                *t.qinv_bsk, t.bsk_p,
-            )
+            y_bsk = behz.floor_bsk(t, prod_bsk, behz._fbc_q_to_bsk(t, prod_q, t.t_qhinv))
             return modops.w_shoup_mul(behz._sk_to_q(t, y_bsk), *t.q_r1, t.q_p)
 
         out_ntt = sharded_ntt.fwd(

@@ -282,3 +282,38 @@ def test_limb_blocks_on_two_devices_equal_flat(card):
     assert got.data.blocks[0, 1].device.type == "cpu"
     assert torch.equal(got.data.gather(card), chain(a).data)
     assert list(ev.device_evs) == [torch.device("cpu")]
+
+
+def test_bfv_limb_blocks_on_two_devices_equal_flat(card):
+    """The BFV BEHZ multiply -> relinearize on a limb=2 mesh whose blocks
+    lie on the card and on the CPU (``parallel/limb.py:bfv_multiply``: the
+    CPU block's BEHZ tables those of the context there, the all-reduces
+    copying between the devices), equal to the flat evaluator's; K1 and K2
+    launched on the card."""
+    import numpy as np
+
+    from reference_seal_backend_tpu_torch.evaluator.eval import Evaluator
+    from reference_seal_backend_tpu_torch.parallel import mesh as tmesh
+    from reference_seal_backend_tpu_torch.schemes import bfv as tbfv
+    from reference_seal_backend_tpu_torch.schemes import keys as tkeys
+    from reference_seal_backend_tpu_torch.schemes import params as tparams
+
+    ctx = tparams.make_bfv_context(2048, sec_level=0, n_data_primes=6, digit_group=2,
+                                   device=card)
+    ks = tkeys.keygen(ctx, seed=5, need_relin=True)
+    enc, er = tbfv.BfvBatchEncoder(ctx), tbfv.BfvEncryptor(ctx, ks, seed=5)
+    rng = np.random.default_rng(2)
+    vals = rng.integers(0, ctx.t, (2, ctx.n))
+    a, b = (er.encrypt_pt(enc.encode(v)) for v in vals)
+    ev = Evaluator(ctx, ks)
+    want = ev.relinearize(ev.multiply(a, b))
+    mesh = tmesh.make_mesh(2, devices=[card, torch.device("cpu")])
+    place = lambda c: tmesh.shard_ct(c, mesh, limb_axis="limb")
+    before = dict(ntt_cuda.launches)
+    got = ev.relinearize(ev.multiply(place(a), place(b)))
+    assert all(ntt_cuda.launches[k] > before[k] for k in before)
+    assert got.data.blocks[0, 1].device.type == "cpu"
+    assert torch.equal(got.data.gather(card), want.data)
+    np.testing.assert_array_equal(
+        tbfv.BfvDecryptor(ctx, ks).decrypt(want) % ctx.t, vals[0] * vals[1] % ctx.t)
+    torch.cuda.synchronize()

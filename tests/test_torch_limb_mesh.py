@@ -1,18 +1,27 @@
-"""The limb path's pieces in the port alone (no JAX): the collectives of
-``parallel/mesh.py`` it adds (all-gather of one dim, modular all-reduce,
-the rebalancing collective-permute) against plain concatenations and sums,
-the per-block transforms of ``parallel/limb.py`` against the flat plan,
-the logistic-regression shape of the chip smoke's ``limb_path`` (b) at a
-small N (14 limbs over two blocks, 7 / 7 -> 7 / 5 -> 6 / 6, G = 2 groups
-straddling) against the flat evaluator, and what still raises.
-Tolerance 0."""
+"""The limb path's pieces: the collectives of ``parallel/mesh.py`` it adds
+(all-gather of one dim, modular all-reduce, the rebalancing
+collective-permute) against plain concatenations and sums, the per-block
+transforms of ``parallel/limb.py`` against the flat plan, the
+logistic-regression shape of the chip smoke's ``limb_path`` (b) at a small
+N (14 limbs over two blocks, 7 / 7 -> 7 / 5 -> 6 / 6, G = 2 groups
+straddling) against the flat evaluator, levels the limb axis does not
+divide (13 of 14; 5, 3 and 1 of 6) against the JAX package's results, and
+what still raises (the sp layout).  Tolerance 0."""
 
 from dataclasses import replace
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from reference_seal_backend_tpu.evaluator.eval import Evaluator as JEvaluator
+from reference_seal_backend_tpu.schemes import ckks as jckks
+from reference_seal_backend_tpu.schemes import keys as jkeys
+from reference_seal_backend_tpu.schemes import params as jparams
+from reference_seal_backend_tpu.schemes.core import Ciphertext as JCiphertext
+from reference_seal_backend_tpu_torch import convert
 from reference_seal_backend_tpu_torch.evaluator.eval import Evaluator
 from reference_seal_backend_tpu_torch.ops import modops
 from reference_seal_backend_tpu_torch.ops import ntt as tntt
@@ -24,7 +33,13 @@ from reference_seal_backend_tpu_torch.schemes import keys as tkeys
 from reference_seal_backend_tpu_torch.schemes.params import context_on, make_ckks_context
 from reference_seal_backend_tpu_torch.utils.device import mesh_devices
 
-from torch_port_util import check_ntt_views
+from torch_port_util import (
+    assert_same_ct,
+    check_ntt_views,
+    contexts,
+    ct_to_port,
+    jax_keyset_to_numpy,
+)
 
 CPU = torch.device("cpu")
 
@@ -166,8 +181,10 @@ def test_logreg_shape_chain_equals_flat(logreg_shape, dp, monkeypatch):
 
 def test_dp_only_placement_and_refusals(logreg_shape):
     """A dp-placed batch (no limb axis) key-switches block by block with no
-    collective; a level the limb axis does not divide raises, counting
-    nothing; so does the evaluator on the sp layout."""
+    collective; a level the limb axis does not divide (14 limbs on limb =
+    2 switched to 13) is replicated over the limb axis by one all-gather
+    and then multiplies and relinearizes block by block, equal to the JAX
+    package's result; the evaluator on the sp layout raises."""
     ctx, ks, a, _ = logreg_shape
     ev = Evaluator(ctx, ks)
     batch = replace(a, data=torch.stack([a.data, a.data.flip(-1)]))
@@ -175,14 +192,64 @@ def test_dp_only_placement_and_refusals(logreg_shape):
     assert placed.data.spec == ("dp", None, None, None)
     got, stats = _counted(lambda: ev.rotate(placed, 3))
     assert stats == {} and torch.equal(got.data.gather(), ev.rotate(batch, 3).data)
+    jc = jparams.make_ckks_context(1024, mult_depth=6, scale_bits=50, sec_level=0,
+                                   digit_group=2)
+    jk = jkeys.keygen(jc, seed=3, galois_elts=[pow(5, s, 2 * 1024) for s in range(1, 8)],
+                      need_relin=True)
+    np.testing.assert_array_equal(modops.to_numpy(ks.relin.b), np.asarray(jk.relin.b))
     on2 = tmesh.shard_ct(a, _mesh(1, 2), limb_axis="limb")
-
-    def refused():
-        with pytest.raises(NotImplementedError, match="13 limbs do not split into 2 equal"):
-            ev.mod_switch_to(on2, 13)
-
-    assert not any(sp_eval.collective_stats(refused).values())
+    got, stats = _counted(lambda: _odd_level_chain(ev, on2, 13))
+    assert stats == {"all-gather": 1}
+    assert got.data.spec == (None, None, None)
+    assert_same_ct(replace(got, data=got.data.gather()),
+                   jax.jit(lambda c: _odd_level_chain(JEvaluator(jc, jk), c, 13))(_to_jax(a)))
     sp = replace(a, data=tmesh.ShardedTensor.distribute(
         a.data, _mesh(1, 2), (None, None, "limb")))
     with pytest.raises(NotImplementedError, match="coefficient axis is split"):
         ev.relinearize(ev.multiply(sp, sp))
+
+
+def _odd_level_chain(ev, ct, level):
+    """mod_switch_to -> multiply -> relinearize, then a rescale (to the
+    next odd level) where the chain has a level to rescale to."""
+    m = ev.mod_switch_to(ct, level)
+    r = ev.relinearize(ev.multiply(m, m))
+    return ev.rescale_to_next(r) if level >= 5 else r
+
+
+def _to_jax(ct):
+    return JCiphertext(data=jnp.asarray(modops.to_numpy(ct.data)), level=ct.level,
+                       scale=ct.scale, is_ntt=True)
+
+
+@pytest.fixture(scope="module")
+def depth2():
+    """The JAX package's depth-2 CKKS context at N = 2048 (L = 6, rescale
+    groups of 2), its relinearization key, one ciphertext; the port's
+    context and the same key and ciphertext."""
+    jc, tc = contexts(2048)
+    assert tc.L == 6
+    jk = jkeys.keygen(jc, seed=5, need_relin=True)
+    tk = convert.keyset_from_numpy(jax_keyset_to_numpy(jk))
+    rng = np.random.default_rng(8)
+    jct = jckks.CkksEncryptor(jc, jk, seed=5).encrypt_pt(
+        jckks.CkksEncoder(jc).encode(rng.uniform(-1, 1, jc.slots)))
+    return jc, jk, tc, tk, jct
+
+
+@pytest.mark.parametrize("level", [5, 3, 1])
+def test_odd_levels_replicate_over_limb(depth2, level, monkeypatch):
+    """A ciphertext of 6 limbs on limb = 2 switched to an odd level: one
+    all-gather replicates it over the limb axis (what GSPMD returns), and
+    multiply -> relinearize (-> rescale to the next odd level) then runs
+    block by block with no other collective, equal to the JAX package's
+    unsharded result."""
+    jc, jk, tc, tk, jct = depth2
+    ev = Evaluator(tc, tk)
+    placed = tmesh.shard_ct(ct_to_port(jct), _mesh(1, 2), limb_axis="limb")
+    check_ntt_views(monkeypatch)
+    got, stats = _counted(lambda: _odd_level_chain(ev, placed, level))
+    assert stats == {"all-gather": 1}
+    assert got.data.spec == (None, None, None)
+    want = jax.jit(lambda c: _odd_level_chain(JEvaluator(jc, jk), c, level))(jct)
+    assert_same_ct(replace(got, data=got.data.gather()), want)

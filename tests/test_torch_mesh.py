@@ -3,9 +3,9 @@ and its placement of a ciphertext batch over a (dp, limb) mesh, against the
 JAX package: the process-grouped device order, mesh shapes, the devices an
 sp mesh gets (raising rather than co-locating shards silently, and
 starting at the card a caller names), the plain ``Evaluator`` on dp- and
-limb-sharded data (bit for bit the JAX single-device results), what the
-limb path leaves uncovered raising (the BFV BEHZ multiply), and ``sp_shard`` through the C ABI's
-params JSON.  Tolerance 0.
+limb-sharded data (bit for bit the JAX single-device results, the BFV BEHZ
+multiply of limb-sharded data too), ``shard_map`` of a limb block raising,
+and ``sp_shard`` through the C ABI's params JSON.  Tolerance 0.
 
 Cold wall time of the file alone (empty JAX cache): see CHANGES.md."""
 
@@ -152,30 +152,35 @@ def test_dp_and_limb_sharded_evaluator_ops(batch):
 
 
 def test_limb_sharded_key_switch_raises(batch):
-    """What the limb path leaves uncovered raises, naming it, and gathers
-    nothing on the way: the BFV BEHZ multiply of limb-sharded ciphertexts
-    (its base conversion reads every q limb), and a key switch run per
-    block through ``shard_map`` (a limb block is not a batch of whole
-    polynomials).  The CKKS key switch and rescale over limb-sharded data
-    are covered: tests/test_torch_limb_*.py."""
+    """The BFV BEHZ multiply of limb-sharded ciphertexts equals the JAX
+    package's (``parallel/limb.py:bfv_multiply``: its q -> Bsk sums met in
+    two all-reduces, nothing gathered); a key switch run per block through
+    ``shard_map`` raises, naming the sharded dim, and gathers nothing on
+    the way (a limb block is not a batch of whole polynomials).  The CKKS
+    key switch and rescale over limb-sharded data: tests/test_torch_limb_*.py."""
+    from reference_seal_backend_tpu.schemes.core import Ciphertext as JCiphertext
     from reference_seal_backend_tpu_torch.parallel import sp_eval
     from reference_seal_backend_tpu_torch.schemes.core import Ciphertext
 
     tc, tk, _, _, tct = batch
     m = tmesh.make_mesh(8, devices=tdevice.mesh_devices("cpu", 8))
-    _, bc = bfv_contexts(N)
+    jbc, bc = bfv_contexts(N)
     rng = np.random.default_rng(11)
-    data = np.stack([rng.integers(0, p, (4, 2, N)) for p in bc.data_primes], axis=-2)
+    data = np.stack([rng.integers(0, p, (4, 2, N)) for p in bc.data_primes],
+                    axis=-2).astype(np.uint32)
     bct = Ciphertext(data=torch.from_numpy(data.astype(np.int64)).to(torch.int32),
                      level=bc.L, scale=1.0, is_ntt=True)
     bsh = tmesh.shard_ct(bct, m, n_batch_axes=1, batch_axes=("dp",), limb_axis="limb")
-    bev = TEvaluator(bc, None)
-
-    def bfv_multiply():
-        with pytest.raises(NotImplementedError, match="BFV BEHZ multiply"):
-            bev.multiply(bsh, bsh)
-
-    assert not any(sp_eval.collective_stats(bfv_multiply).values())
+    out = {}
+    stats = sp_eval.collective_stats(
+        lambda: out.setdefault("ct", TEvaluator(bc, None).multiply(bsh, bsh)))
+    assert {k: v for k, v in stats.items() if v} == {"all-reduce": 2}
+    got = out["ct"]
+    assert got.data.spec == ("dp", None, "limb", None)
+    jev = JEvaluator(jbc, None)
+    want = jax.jit(lambda a: jev.multiply(a, a))(
+        JCiphertext(data=jnp.asarray(data), level=jbc.L, scale=1.0, is_ntt=True))
+    assert_same_ct(_gathered(got), want)
     sh = tmesh.shard_ct(tct, m, n_batch_axes=1, batch_axes=(None,), limb_axis="limb")
     ev = TEvaluator(tc, tk)
     prod = ev.multiply(sh, sh)
