@@ -38,14 +38,28 @@ Phases (each prints one JSON line; any failure ends the run non-zero):
    N = 8192, 10 x 9 x 8 (BFV: 4 data primes, t = 1032193, digit groups of
    2); CKKS logistic regression at N = 16384, depth 6, scale 50, 16
    features, Latency and Offline at a batch of 100.  Requires ``Failed: 0``
-   (exact equality under BFV) and NTT kernel launches, as many in every
-   iteration, in every ``operate`` that switches keys or multiplies under
-   BFV (the BEHZ multiply: four).  Per descriptor: ``operate_ms``, results
-   per second, launches, set-up seconds, peak device memory, the chunking of
-   the logistic-regression dots stage and, under BFV, the noise budget left
-   in the result.  (Where the device time of one
-   ``operate`` goes, launch by launch, is read by
-   ``reference_seal_backend_tpu_torch/utils/profile_operate.py``.)
+   (exact equality under BFV).  Every stage of ``operate`` is a CUDA graph
+   captured in the warm-up and replayed in the timed loop
+   (``utils/staging.py``): every descriptor must capture and replay, the
+   timed ``operate`` calls must launch nothing from Python (the launch
+   counters do not move), and what the process holds on the card before a
+   descriptor begins must not grow within a context (the graphs are
+   released with their benchmark).  After the timed loop, on the same
+   benchmark (the runner's ``after_timing``, ``compare_with_eager``):
+   ``operate`` replayed and with its stages eager
+   (``utils/profile_operate.py:replayed_and_eager``); the last timed
+   result, read after those calls, must equal the eager one integer for
+   integer, and the NTT kernels of a replay, counted by name in its traces
+   (``torch.profiler``), must equal the eager ``operate``'s launches and
+   its traces' count, as many in every call, in every ``operate`` that
+   switches keys or multiplies under BFV (the BEHZ multiply: four;
+   ``EXPECTED_LAUNCHES``).  Per descriptor: ``operate_ms``, results per
+   second, launches (per replay from the traces; counted in the warm-up),
+   set-up seconds, peak device memory, the graphs' captures, replays and
+   warm-up and capture seconds, the chunking of the logistic-regression
+   dots stage and, under BFV, the noise budget left in the result; and
+   replayed and eager, taken in turns: ``operate_ms``, device busy time
+   and kernel count from the traces, and span (CUDA events).
 5. ``capi_path`` (after ``sp_path``) the port through the C ABI of
    ``native/include/rsb_tpu_backend.h``.  (a) The unchanged harness binary,
    built against the port's library, as a subprocess on the card: the 18
@@ -55,16 +69,19 @@ Phases (each prints one JSON line; any failure ends the run non-zero):
    included).  (b) The library loaded into this interpreter with
    ``ctypes.CDLL``: the seven steps of the CKKS dot product and the BFV
    element-wise multiply (Latency, registered parameters, inputs from the
-   seed) through ``rsbtpu_*``; every ``rsbtpu_operate`` must launch the NTT
-   kernels as often as one ``operate`` of the main path (21 and 4), the
-   decoded result must match the cleartext (5e-5 under CKKS, exact under
-   BFV) and equal the Python path's bit for bit.  Then all 20 descriptors
-   with the params and sample counts the harness feeds them (read from
-   ``native/src/native_harness.cpp``), ``rsbtpu_operate`` three times each:
-   NTT launches per call (the warm calls' equal), the result against the cleartext at the runner's
-   tolerances, and the first and warm call's milliseconds beside the
-   harness's own first call; the cold build of the BEHZ tables at N = 8192;
-   ``operate`` timed through the ABI and from Python, and the crossing alone
+   seed) through ``rsbtpu_*``; the first ``rsbtpu_operate`` warms up and
+   captures its stage, every call replays it, the warm ones launch nothing
+   from Python, and the traces of a warm call count as many NTT kernels as
+   a replay of the main path (21 and 4); the decoded result must match the
+   cleartext (5e-5 under CKKS, exact under BFV) and equal the Python path's
+   bit for bit.  Then all 20 descriptors with the params and sample counts
+   the harness feeds them (read from ``native/src/native_harness.cpp``),
+   ``rsbtpu_operate`` three times each and warm calls traced: NTT launches
+   per call (none in the warm calls, each a replay) and in the traces, the
+   result against the cleartext at the runner's tolerances, and the first
+   and warm call's milliseconds beside the harness's own first call; the cold build
+   of the BEHZ tables at N = 8192; ``operate`` timed through the ABI and
+   from Python, and the crossing alone
    (``rsbtpu_benchmark_count``).
 6. ``sp_path`` (after ``main_path``) the slot-parallel path
    (``parallel/``): five descriptors at their registered parameters (CKKS
@@ -77,7 +94,8 @@ Phases (each prints one JSON line; any failure ends the run non-zero):
    must equal the flat run's.  Per run: ``operate_ms`` (median of 3 warm
    calls), set-up seconds, peak device memory, NTT kernel launches per
    ``operate`` and the collectives of one ``operate``
-   (``sp_eval.collective_stats``).  Then the sharded transforms against K1
+   (``sp_eval.collective_stats``); an sp run captures and replays no graph
+   (its stages run eagerly).  Then the sharded transforms against K1
    (``epilogue`` True and False) and K2 on every shape the sp runs handed
    ``parallel/sharded_ntt.py`` (noted in its ``call_log``: the data plans
    and the BEHZ plan over q u Bsk), at sp = 1 and 4, tolerance 0.
@@ -103,7 +121,9 @@ Phases (each prints one JSON line; any failure ends the run non-zero):
    device memory; (a), (b), (d) and (e) must launch both kernels, (a),
    (b) and (d) at the top block's first limb too, and every transform
    must launch its kernel (no plain version).
-8. the ``kernels`` line (``launches``: the main-path run; ``sp_path_launches``:
+8. the ``kernels`` line (``launches``: the main-path run, counted where the
+   wrapper launches: the eager warm-ups, the captures and the eager
+   ``operate`` calls held against the replays; ``sp_path_launches``:
    the sp runs of ``sp_path``; ``limb_path_launches``: the placed chains of
    ``limb_path``; ``capi_path_launches``: the ``rsbtpu_*`` calls of
    ``capi_path`` (b); each counted from 0), the card's name and power
@@ -192,6 +212,17 @@ LIMB_ODD_LEVEL = 13
 # tensor product's forward and inverse over q u Bsk, the output's forward
 BEHZ_SWEEPS = 4
 LOGREG_BATCH = 100  # the batch behind the flexible Offline registration
+# NTT kernels of one warm ``operate``: the BEHZ multiply, the dot product,
+# logistic regression
+EXPECTED_LAUNCHES = {
+    "bfv_eltwise_mult_latency": BEHZ_SWEEPS, "bfv_eltwise_mult_offline": BEHZ_SWEEPS,
+    "ckks_dot_product_latency": 21, LOGREG[0]: 46, LOGREG[1]: 127,
+}
+# what the process may hold on the card before a descriptor beyond what it
+# held before the first descriptor of the same context: the tables that
+# later descriptors cache (Galois permutations, BEHZ tables, per-level
+# constants), megabytes; one benchmark's keys or graphs left behind are more
+HELD_GROWTH_BYTES = 16 << 20
 TIMED_SHAPE = (64, 7, 8192)
 BIG_LIMBS = 14
 L2_BYTES = 50e6
@@ -512,10 +543,66 @@ def phase_kernel_times(device):
     return rows[0]
 
 
+def same_result(a, b) -> bool:
+    """Two ``operate`` results equal integer for integer: the same structure,
+    the same ``level`` / ``scale`` / ``is_ntt``, equal tensors."""
+    from reference_seal_backend_tpu_torch.models.base import Handle
+    from reference_seal_backend_tpu_torch.schemes.core import Ciphertext, Plaintext
+
+    if isinstance(a, Handle):
+        return isinstance(b, Handle) and (a.tag, a.meta) == (b.tag, b.meta) \
+            and same_result(a.payload, b.payload)
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and a.dtype == b.dtype \
+            and a.shape == b.shape and torch.equal(a, b)
+    if isinstance(a, (Ciphertext, Plaintext)):
+        return type(a) is type(b) and \
+            (a.level, a.scale, a.is_ntt) == (b.level, b.scale, b.is_ntt) \
+            and same_result(a.data, b.data)
+    if isinstance(a, (tuple, list)):
+        return type(a) is type(b) and len(a) == len(b) and \
+            all(same_result(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def compare_with_eager(bench, loaded, result):
+    """``main_path``'s ``after_timing``: on the benchmark the runner just
+    timed, ``operate`` replayed and with its stages eager
+    (``utils/profile_operate.py:replayed_and_eager``).  Fails unless the
+    runner's last timed result, read after those later calls, equals the
+    eager one integer for integer; unless a replay moves no launch counter
+    and the eager ``operate`` launches as many NTT kernels in every call;
+    and unless the traces of the replay count the NTT kernels the eager
+    ``operate`` launched (``EXPECTED_LAUNCHES`` where given)."""
+    from reference_seal_backend_tpu_torch.utils import profile_operate
+
+    t0 = time.perf_counter()
+    name = bench.descriptor.name
+    eager, row = profile_operate.replayed_and_eager(bench, loaded)
+    if not same_result(result, eager):
+        fail(f"{name}: the replayed result differs from the eager one")
+    rep, eag = row["replayed"], row["eager"]
+    counted = eag["ntt_launches_per_operate"]
+    if rep["ntt_launches_per_operate"] != [0] or len(counted) != 1:
+        fail(f"{name}: NTT launches counted per operate: replayed "
+             f"{rep['ntt_launches_per_operate']}, eager {counted}")
+    want = EXPECTED_LAUNCHES.get(name, counted[0])
+    if not rep["ntt_launches"] == eag["ntt_launches"] == counted[0] == want:
+        fail(f"{name}: NTT kernels per operate: traces of the replay "
+             f"{rep['ntt_launches_each']} (all kernels "
+             f"{rep['kernel_launches_each']}), of the eager operate "
+             f"{eag['ntt_launches_each']} ({eag['kernel_launches_each']}), "
+             f"launched eagerly {counted[0]}, expected {want}; pad records "
+             f"seen {rep['pads_seen_each']}, {eag['pads_seen_each']}")
+    return {"equal_to_eager": True, "tolerance": 0, **row,
+            "seconds": time.perf_counter() - t0}
+
+
 def phase_main_path(device):
     from reference_seal_backend_tpu_torch.engine import runner
     from reference_seal_backend_tpu_torch.ops import ntt as ntt_mod
     from reference_seal_backend_tpu_torch.ops.cuda import ntt as ntt_cuda
+    from reference_seal_backend_tpu_torch.utils import staging
 
     # more than one timed iteration of each descriptor of the later slices,
     # so that the launch counts of two iterations can be compared
@@ -525,29 +612,33 @@ def phase_main_path(device):
     with tempfile.TemporaryDirectory() as report_dir:
         ntt_mod.call_log = {}  # every view the kernels are handed
         ntt_cuda.reset_launches()
+        staging.reset_counts()
         t0 = time.perf_counter()
         results = runner.run_all(
             TWENTY, seed=SEED, sample_size=8, report_dir=report_dir,
-            per_benchmark=per, device=device,
+            per_benchmark=per, device=device, after_timing=compare_with_eager,
         )
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(ntt_cuda.launches)
+        graphs = dict(staging.counts)
         views, ntt_mod.call_log = ntt_mod.call_log, None
     failed = [r.name for r in results if not r.passed]
     if failed or len(results) != len(TWENTY):
         fail(f"main path: failed benchmarks {failed}: "
              f"{[r.error for r in results if r.error]}")
     for r in results:
-        if "eltwise" not in r.name and r.ntt_launches_per_operate <= 0:
-            fail(f"{r.name}: operate launched no NTT kernel")
-        if not r.ntt_launches_steady:
-            fail(f"{r.name}: operate's NTT launches differ between iterations")
+        if "eltwise" not in r.name and r.inspected["replayed"]["ntt_launches"] <= 0:
+            fail(f"{r.name}: operate ran no NTT kernel")
+        # the timed operates only replay: the wrapper launches nothing then
+        if r.ntt_launches_per_operate or not r.ntt_launches_steady:
+            fail(f"{r.name}: the timed operates launched NTT kernels from "
+                 f"Python ({r.ntt_launches_per_operate} at most)")
         if r.name in MATMULT + LOGREG + BFV and r.iterations < 2:
             fail(f"{r.name}: one timed iteration only")
-        if "bfv_eltwise_mult" in r.name and r.ntt_launches_per_operate != BEHZ_SWEEPS:
-            fail(f"{r.name}: {r.ntt_launches_per_operate} NTT launches per "
-                 f"operate, not the BEHZ multiply's {BEHZ_SWEEPS}")
+        if not (r.notes["graph_captures"] and r.notes["graph_replays"]):
+            fail(f"{r.name}: operate's stages were not captured and replayed: "
+                 f"{r.notes}")
         want = {"poly_modulus_degree": "8192", "security": "128 bits"}
         if r.name in LOGREG:
             want.update(poly_modulus_degree="16384", key_switch_digit_group="2",
@@ -563,12 +654,24 @@ def phase_main_path(device):
     for name, count in launches.items():
         if count <= 0:
             fail(f"main path never launched {name}")
+    # the graphs (and keys) of a finished benchmark are not held any more
+    first_held = {}
+    for r in results:
+        ctx = (r.description["scheme"], r.description["poly_modulus_degree"])
+        base = first_held.setdefault(ctx, r.held_before_bytes)
+        if r.held_before_bytes - base > HELD_GROWTH_BYTES:
+            fail(f"{r.name}: {r.held_before_bytes} bytes held on the card before "
+                 f"it began, {base} before the first descriptor of {ctx}")
     benchmarks = {
         r.name: {
             "operate_ms": r.wall_ms_operate,
             "results_per_s": r.ops_per_sec,
             "iterations": r.iterations,
-            "ntt_launches_per_operate": r.ntt_launches_per_operate,
+            # from the traces of a replay; the wrapper's count in the warm-up
+            # (each stage eager once, then its capture) and per timed operate
+            "ntt_launches_per_replay": r.inspected["replayed"]["ntt_launches"],
+            "ntt_launches_warmup": r.ntt_launches_warmup,
+            "ntt_launches_timed_operate": r.ntt_launches_per_operate,
             "setup_s": r.setup_s,
             "peak_device_bytes": r.peak_device_bytes,
             "held_before_bytes": r.held_before_bytes,
@@ -581,10 +684,11 @@ def phase_main_path(device):
     }
     emit({
         "phase": "main_path", "failed": 0, "total": len(results),
-        "wall_s": wall, "launches": launches,
+        "wall_s": wall, "launches": launches, "graphs": graphs,
         "offline_samples": {"eltwise, dot product (both schemes)": [8, 8],
                             "logistic regression": [1, 1, LOGREG_BATCH]},
         "benchmarks": benchmarks,
+        "staged_vs_eager": {r.name: r.inspected for r in results},
     })
     return launches, views, benchmarks
 
@@ -745,6 +849,7 @@ def phase_sp_path(device):
     from reference_seal_backend_tpu_torch.engine.registry import Engine
     from reference_seal_backend_tpu_torch.ops.cuda import ntt as ntt_cuda
     from reference_seal_backend_tpu_torch.parallel import sharded_ntt, sp_eval
+    from reference_seal_backend_tpu_torch.utils import staging
     from reference_seal_backend_tpu_torch.utils.device import (
         VIRTUAL_DEVICES_ENV,
         mesh_devices,
@@ -775,6 +880,7 @@ def phase_sp_path(device):
             for k in SP_SIZES:
                 torch.cuda.synchronize()
                 ntt_cuda.reset_launches()
+                staging.reset_counts()
                 bench, loaded, out, row = _seven_steps_timed(
                     engine, desc, {"sp_shard": k}, inputs,
                     list(dict.fromkeys(mesh_devices(device, k))))
@@ -789,6 +895,10 @@ def phase_sp_path(device):
                     lambda: bench.block(bench.operate(loaded)))
                 torch.cuda.synchronize()
                 row["ntt_kernel_launches"] = dict(ntt_cuda.launches)
+                row["graphs"] = dict(staging.counts)
+                if any(staging.counts.values()):
+                    fail(f"sp_path: {name} at sp = {k} staged a graph: "
+                         f"{staging.counts}")
                 for kname, n in ntt_cuda.launches.items():
                     launches[kname] += n
                 row["equal_to_flat"] = True
@@ -1208,6 +1318,7 @@ def abi_in_process(device, main_benchmarks, harness_printed):
     from reference_seal_backend_tpu_torch.engine.registry import Engine
     from reference_seal_backend_tpu_torch.ops import ntt as ntt_mod
     from reference_seal_backend_tpu_torch.ops.cuda import ntt as ntt_cuda
+    from reference_seal_backend_tpu_torch.utils import profile_operate, staging
 
     os.environ[capi.DEVICE_ENV] = device.type
     lib = native.load_library()
@@ -1223,22 +1334,31 @@ def abi_in_process(device, main_benchmarks, harness_printed):
 
     def seven_steps(bid, inputs):
         """encode .. decode through the ABI, ``rsbtpu_operate`` three
-        times (a first call, then two warm ones).  Returns the loaded handle,
-        the decoded JSON and, per operate, its NTT launches and
-        milliseconds."""
+        times (a first call, then two warm ones), and warm calls traced
+        (``profile_operate.profile_run``).  Returns the loaded handle, the
+        decoded JSON, per operate its NTT launches as the wrapper counted
+        them, milliseconds and graph replays, and the traces' row."""
         h = abi("rsbtpu_encode", bid, json.dumps(
             [np.asarray(x).tolist() for x in inputs]).encode())
         loaded = abi("rsbtpu_load", bid, abi("rsbtpu_encrypt", bid, h))
-        per_call, ms = [], []
+        per_call, ms, replays = [], [], []
         for _ in range(3):
             before = sum(ntt_cuda.launches.values())
+            replayed = staging.counts["replays"]
             t0 = time.perf_counter()
             out = abi("rsbtpu_operate", bid, loaded)
             ms.append((time.perf_counter() - t0) * 1e3)
             per_call.append(sum(ntt_cuda.launches.values()) - before)
+            replays.append(staging.counts["replays"] - replayed)
+
+        def warm_call():
+            lib.rsbtpu_handle_destroy(abi("rsbtpu_operate", bid, loaded))
+            torch.cuda.synchronize()
+
+        traced = profile_operate.profile_run(warm_call)
         h = abi("rsbtpu_decrypt", bid, abi("rsbtpu_store", bid, out))
         return loaded, native.take_string(lib, abi("rsbtpu_decode", bid, h)), \
-            per_call, ms
+            per_call, ms, replays, traced
 
     def tolerance(desc):
         return 0.0 if desc.scheme is Scheme.BFV else runner.CKKS_ATOL[desc.workload]
@@ -1269,12 +1389,20 @@ def abi_in_process(device, main_benchmarks, harness_printed):
     for name in ABI_IN_PROCESS:
         desc = engine.find(name)
         py, py_loaded, inputs, truth, py_json = python[name]
-        want_launches = main_benchmarks[name]["ntt_launches_per_operate"]
+        want_launches = main_benchmarks[name]["ntt_launches_per_replay"]
         bid = abi("rsbtpu_benchmark_create", eid, name.encode(), b"")
-        loaded, abi_json, per_call, _ = seven_steps(bid, inputs)
-        if per_call != [want_launches] * 3:
+        loaded, abi_json, per_call, _, replays, traced = seven_steps(bid, inputs)
+        # the first call warms its stage up and captures it (the wrapper
+        # counts both); every call replays, and a replay launches nothing
+        # from Python: its kernels are counted in the traces
+        if per_call[0] <= 0 or per_call[1:] != [0, 0] or not all(replays):
             fail(f"capi_path: {name}: NTT launches per rsbtpu_operate "
-                 f"{per_call}, the main path's {want_launches}")
+                 f"{per_call}, graph replays {replays}")
+        if traced["ntt_launches"] != want_launches:
+            fail(f"capi_path: {name}: a warm rsbtpu_operate ran "
+                 f"{traced['ntt_launches_each']} NTT kernels (traces; pad "
+                 f"records seen {traced['pads_seen_each']}), the main path's "
+                 f"replay {want_launches}")
         if json.loads(abi_json) != py_json:
             fail(f"capi_path: {name}: the ABI decoded {abi_json[:200]}, the "
                  f"Python path {py_json}"[:600])
@@ -1282,8 +1410,10 @@ def abi_in_process(device, main_benchmarks, harness_printed):
         if err > tolerance(desc):
             fail(f"capi_path: {name}: result off the cleartext by {err}")
         registered[name] = {
-            "ntt_launches_per_operate": per_call,
-            "main_path_ntt_launches_per_operate": want_launches,
+            "ntt_launches_counted_per_operate": per_call,
+            "graph_replays_per_operate": replays,
+            "ntt_launches_traced_warm": traced["ntt_launches_each"],
+            "main_path_ntt_launches_per_replay": want_launches,
             "equal_to_python_path": True,
             "max_abs_err_vs_cleartext": err, "tolerance": tolerance(desc),
         }
@@ -1302,7 +1432,7 @@ def abi_in_process(device, main_benchmarks, harness_printed):
             bench = capi._benchmarks[bid]
             inputs, truth = runner.gen_inputs(
                 desc, bench.params, np.random.default_rng(SEED), b0, b1)
-            _, abi_json, per_call, ms = seven_steps(bid, inputs)
+            _, abi_json, per_call, ms, replays, traced = seven_steps(bid, inputs)
             if name == "bfv_eltwise_mult_latency":
                 bfv_ctx = bench.ctx
             lib.rsbtpu_benchmark_destroy(bid)
@@ -1310,21 +1440,28 @@ def abi_in_process(device, main_benchmarks, harness_printed):
             if err > tolerance(desc):
                 fail(f"capi_path: {name} at {params}: result off the "
                      f"cleartext by {err}")
-            # a first call may launch more: logistic regression encodes its
-            # plaintext constants then (as in the main path's warm-up)
-            first, warm = per_call[0], per_call[1]
-            if per_call[2] != warm or first < warm:
+            # the first call warms up and captures (logistic regression
+            # also encodes its plaintext constants); the warm ones replay
+            if per_call[1:] != [0, 0] or not all(replays[1:]):
                 fail(f"capi_path: {name} at {params}: NTT launches per "
-                     f"rsbtpu_operate {per_call}: warm calls differ")
-            if "eltwise" not in name and warm <= 0:
-                fail(f"capi_path: {name} at {params}: operate launched no "
-                     f"NTT kernel")
-            if "bfv_eltwise_mult" in name and warm != BEHZ_SWEEPS:
-                fail(f"capi_path: {name}: {warm} NTT launches per "
-                     f"operate, not the BEHZ multiply's {BEHZ_SWEEPS}")
+                     f"rsbtpu_operate {per_call}, graph replays {replays}: "
+                     f"the warm calls did not only replay")
+            ran = traced["ntt_launches"]
+            if ran is None:
+                fail(f"capi_path: {name} at {params}: no whole trace: pad "
+                     f"records seen {traced['pads_seen_each']}")
+            if "eltwise" not in name and ran <= 0:
+                fail(f"capi_path: {name} at {params}: operate ran no NTT "
+                     f"kernel")
+            if "bfv_eltwise_mult" in name and ran != BEHZ_SWEEPS:
+                fail(f"capi_path: {name}: {traced['ntt_launches_each']} NTT "
+                     f"kernels per operate (traces), not the BEHZ multiply's "
+                     f"{BEHZ_SWEEPS}")
             at_harness_sizes[name] = {
                 "params": params, "samples": [b0, b1],
-                "ntt_launches_per_operate": {"first": first, "warm": warm},
+                "ntt_launches_counted_per_operate": per_call,
+                "ntt_launches_traced_warm": traced["ntt_launches_each"],
+                "graph_replays_per_operate": replays,
                 "ntt_launches_seven_steps": {
                     k: ntt_cuda.launches[k] - launched[k] for k in launched},
                 "operate_ms": {"harness_first": harness_printed[name],

@@ -136,7 +136,9 @@ def benchmark_create(eid: int, name: str, params_json: str) -> int:
 
 
 def benchmark_destroy(bid: int) -> int:
-    _benchmarks.pop(bid, None)
+    bench = _benchmarks.pop(bid, None)
+    if bench is not None:
+        bench.release_graphs()
     return 0
 
 

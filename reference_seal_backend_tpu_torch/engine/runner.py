@@ -36,7 +36,7 @@ import csv
 import os
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -63,11 +63,16 @@ class RunResult:
     # report fragments from HEBenchmark.describe (models/base.py)
     description: Dict[str, str] = field(default_factory=dict)
     # What follows is not written to report.csv.
-    # CUDA NTT kernel launches of one timed ``operate`` (0 on the CPU, where
-    # the plain version runs): the most over the timed iterations, and
-    # whether every iteration launched as many
+    # CUDA NTT kernel launches of one timed ``operate`` as the wrapper
+    # counts them (0 on the CPU, where the plain version runs, and where
+    # ``operate`` replays its stages' CUDA graphs: a replay launches nothing
+    # from Python; utils/profile_operate.py counts its kernels in a trace):
+    # the most over the timed iterations, and whether every iteration
+    # launched as many; and the launches of the warm-up, where on the card
+    # each stage runs eagerly once and its capture records the launches
     ntt_launches_per_operate: int = 0
     ntt_launches_steady: bool = True
+    ntt_launches_warmup: int = 0
     # seconds from building the benchmark (context, keygen) to the loaded
     # operands, i.e. everything before the first ``operate``
     setup_s: float = 0.0
@@ -81,6 +86,8 @@ class RunResult:
     # BFV also ``noise_budget_bits``: the invariant noise budget left in the
     # result ciphertext (the least over its batch)
     notes: Dict[str, int] = field(default_factory=dict)
+    # what run_benchmark's ``after_timing`` returned
+    inspected: Dict[str, Any] = field(default_factory=dict)
 
 
 def gen_inputs(
@@ -161,11 +168,15 @@ def run_benchmark(
     min_test_time_ms: Optional[float] = None,
     warmup_iterations: Optional[int] = None,
     atol: Optional[float] = None,
+    after_timing: Optional[Callable[[Any, Any, Any], Dict[str, Any]]] = None,
 ) -> RunResult:
     """``min_test_time_ms`` / ``warmup_iterations`` = None defer to the
     descriptor's registered timing attributes (the reference's
     ``cat_params``); an explicit value (CLI / YAML config) overrides.
-    ``atol`` = None takes the per-workload clamp-scale tolerance."""
+    ``atol`` = None takes the per-workload clamp-scale tolerance.
+    ``after_timing(bench, loaded, result)``, where given, is called after
+    the timed loop, while the benchmark and its graphs live, with the last
+    timed result; what it returns is the result's ``inspected``."""
     name = desc.name
     if atol is None:
         atol = CKKS_ATOL[desc.workload]
@@ -173,6 +184,7 @@ def run_benchmark(
         min_test_time_ms = float(desc.min_test_time_ms)
     if warmup_iterations is None:
         warmup_iterations = desc.warmup_iterations
+    bench = None
     try:
         if desc.category is Category.OFFLINE:
             # Per-operand sample counts: the descriptor's registered
@@ -206,9 +218,12 @@ def run_benchmark(
         setup_s = time.perf_counter() - t_setup
 
         # warmup (like the harness's warmup_iterations_count for Latency;
-        # on the card the first pass also builds and loads the kernels)
+        # on the card the first pass also builds and loads the kernels and
+        # captures the stages' graphs, so the timed loop only replays them)
+        launched = sum(ntt_cuda.launches.values())
         for _ in range(max(warmup_iterations, 1)):
             result = bench.block(bench.operate(loaded))
+        warmup_launches = sum(ntt_cuda.launches.values()) - launched
 
         iters = 0
         per_iter = set()
@@ -223,6 +238,7 @@ def run_benchmark(
                 break
         wall_ms = elapsed / iters
         peak = torch.cuda.max_memory_allocated(engine.device) if on_card else 0
+        inspected = after_timing(bench, loaded, result) if after_timing else {}
 
         stored = bench.store(result)
         notes = bench.run_notes(loaded)
@@ -250,12 +266,16 @@ def run_benchmark(
             name, passed, wall_ms, ops, iters, description=bench.describe(),
             ntt_launches_per_operate=max(per_iter),
             ntt_launches_steady=len(per_iter) == 1,
+            ntt_launches_warmup=warmup_launches,
             setup_s=setup_s, peak_device_bytes=peak,
             held_before_bytes=held_before,
-            notes=notes,
+            notes=notes, inspected=inspected,
         )
     except Exception as e:  # noqa: BLE001 — harness reports, not raises
         return RunResult(name, False, 0.0, 0.0, 0, error=f"{type(e).__name__}: {e}")
+    finally:
+        if bench is not None:
+            bench.release_graphs()  # the stages' graphs end with the benchmark
 
 
 def run_all(
@@ -268,13 +288,15 @@ def run_all(
     min_test_time_ms: Optional[float] = None,
     per_benchmark: Optional[Dict[str, Dict]] = None,
     device=DEFAULT_DEVICE,
+    after_timing=None,
 ) -> List[RunResult]:
     """Run benchmarks by name.  ``params`` applies to every benchmark;
     ``per_benchmark[name]`` may carry {"params": {...}, "sample_size": n,
     "min_test_time_ms": t, "warmup_iterations": w} overrides from a YAML
     config (config params under CLI params; None timing values defer to
     each descriptor's registered attributes).  ``device`` is the card
-    unless the caller asks for ``"cpu"``."""
+    unless the caller asks for ``"cpu"``; ``after_timing`` goes to every
+    :func:`run_benchmark`."""
     engine = Engine(device)
     names = benchmark_names or engine.names()
     unknown = [n for n in names if n not in engine.names()]
@@ -297,6 +319,7 @@ def run_all(
             sample_size=entry.get("sample_size", sample_size),
             min_test_time_ms=entry.get("min_test_time_ms", min_test_time_ms),
             warmup_iterations=entry.get("warmup_iterations"),
+            after_timing=after_timing,
         )
         results.append(res)
         if verbose:

@@ -20,12 +20,19 @@ polynomial's coefficient axis sharded over a k-device ``("sp",)`` mesh
 ``load`` shards the ciphertexts, ``store`` gathers them back, and the
 workload's ``operate`` graph is unchanged: the ``SpEvaluator`` stands in as
 ``self.ev``.
+
+Each stage of a workload's ``operate`` runs through
+:meth:`HEBenchmark.graph_with_keys` (``utils/staging.py``): on the card it is
+captured once per input signature as a CUDA graph and replayed, at the sites
+where the JAX package jits it (``jit_with_keys``); on the CPU it runs as it
+is.
 """
 
 from __future__ import annotations
 
 import abc
 import os
+import threading
 from dataclasses import dataclass, field, replace
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -48,6 +55,7 @@ from reference_seal_backend_tpu_torch.schemes.params import (
     make_bfv_context,
     make_ckks_context,
 )
+from reference_seal_backend_tpu_torch.utils import staging
 from reference_seal_backend_tpu_torch.utils.device import mesh_devices, pick_device
 
 CKKS_EPS = 5e-5  # decode clamp, reference convention
@@ -96,6 +104,9 @@ class HEBenchmark(abc.ABC):
     ):
         self.descriptor = descriptor
         self.device = pick_device(device)
+        # the stages of operate (graph_with_keys) and their capture guard
+        self._stages: List[staging.StagedCall] = []
+        self._capture_guard = threading.Lock()
         p = dict(descriptor.default_params)
         if params:
             p.update(params)
@@ -163,6 +174,34 @@ class HEBenchmark(abc.ABC):
             self.ev = sp_eval.SpEvaluator(self.ctx, self.keys, sp_mesh)
 
     # ------------------------------------------------------------------ #
+
+    def graph_with_keys(self, fn):
+        """``fn``, a stage of ``operate``, as a :class:`staging.StagedCall`:
+        on the card captured once per input signature as a CUDA graph and
+        replayed (the counterpart of the JAX package's ``jit_with_keys``).
+        The keys are device tensors the graph reads in place, not
+        arguments: they cannot grow a compile payload here.  A capture that
+        starts while another capture of this benchmark runs raises (the JAX
+        package's single-trace guard).
+
+        Under ``sp_shard`` the stage runs eagerly, by this branch and never
+        by a failed capture: it runs over ``ShardedTensor`` blocks on
+        several devices, and one CUDA graph belongs to one device."""
+        if self.sp_shard:
+            return staging.unstaged(fn)
+        stage = staging.StagedCall(
+            fn, f"{self.descriptor.name}.{fn.__name__}", self._capture_guard)
+        self._stages.append(stage)
+        return stage
+
+    def release_graphs(self) -> None:
+        """Drop every graph of this benchmark's stages, and their memory
+        pools.  Called where a benchmark ends (the runner, the C ABI's
+        ``benchmark_destroy``).  A graph reads ``self.keys`` (and what
+        ``self.ev`` caches of them) in place: both are set once, in
+        ``__init__``; code that replaced either would call this first."""
+        for stage in self._stages:
+            stage.release()
 
     def check_handle(self, h, stage: str) -> "Handle":
         """Validate a pipeline-entry handle: right type, right family,
@@ -294,10 +333,18 @@ class HEBenchmark(abc.ABC):
             desc["sp_shard"] = str(self.sp_shard)
         return desc
 
-    def run_notes(self, loaded: Handle) -> Dict[str, int]:
+    def run_notes(self, loaded: Handle) -> Dict[str, float]:
         """What the runner should report of how ``operate`` treats these
-        operands, beyond its time (nothing, unless a workload overrides)."""
-        return {}
+        operands, beyond its time: the graphs of its stages (captures,
+        replays, seconds of the eager warm-ups and of the captures) and
+        what a workload adds."""
+        stages = self._stages
+        return {
+            "graph_captures": sum(s.captures for s in stages),
+            "graph_replays": sum(s.replays for s in stages),
+            "graph_warmup_s": sum(s.warmup_s for s in stages),
+            "graph_capture_s": sum(s.capture_s for s in stages),
+        }
 
     def block(self, handle: Handle) -> Handle:
         """Block until device work queued so far has finished, on every

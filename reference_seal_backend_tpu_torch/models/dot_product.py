@@ -30,6 +30,7 @@ class DotProductBenchmark(HEBenchmark):
             raise ValueError(
                 f"vector size {self.n} exceeds slot count {self.ctx.slots}"
             )
+        self._op_graph = self.graph_with_keys(self._operate_impl)
 
     def rotation_steps(self) -> List[int]:
         # the CKKS slot count and the BFV batching row are both N/2
@@ -63,7 +64,7 @@ class DotProductBenchmark(HEBenchmark):
     def operate(self, loaded: Handle) -> Handle:
         self.check_handle(loaded, "ct")
         a, b = loaded.payload
-        out = self._operate_impl(a, b)
+        out = self._op_graph(a, b)
         return Handle(
             tag="dot_result",
             payload=out,

@@ -38,6 +38,7 @@ class ElementWiseBenchmark(HEBenchmark):
                 f"vector size {self.n} exceeds slot count {self.ctx.slots}"
             )
         self.is_add = descriptor.workload is Workload.ELTWISE_ADD
+        self._op_graph = self.graph_with_keys(self._operate_impl)
 
     # -- pipeline --------------------------------------------------------- #
 
@@ -61,7 +62,7 @@ class ElementWiseBenchmark(HEBenchmark):
     def operate(self, loaded: Handle) -> Handle:
         self.check_handle(loaded, "ct")
         a, b = loaded.payload
-        out = self._operate_impl(a, b)
+        out = self._op_graph(a, b)
         return Handle(
             tag="eltwise_result",
             payload=out,

@@ -65,6 +65,11 @@ class LogRegBenchmark(HEBenchmark):
         digit_row_bytes = 2 * nd * (ctx.L + ctx.n_special) * ctx.n * 4
         auto = max(1, (512 << 20) // digit_row_bytes)
         self.dots_chunk = int(p.get("dots_chunk", auto))
+        # three stages, as the JAX package jits them; the dots stage is
+        # replayed once per chunk (the chunks share one shape)
+        self._stage_dots = self.graph_with_keys(self._dots_impl)
+        self._stage_collapse = self.graph_with_keys(self._collapse_impl)
+        self._stage_sigmoid = self.graph_with_keys(self._sigmoid_impl)
 
     def rotation_steps(self) -> List[int]:
         steps = composite.rotations_for_accumulate(self.n, self.ctx.slots)
@@ -121,7 +126,8 @@ class LogRegBenchmark(HEBenchmark):
 
     def run_notes(self, loaded: Handle):
         chunk, n_chunks = self.dots_chunks(loaded.payload[2].data.shape[0])
-        return {"dots_chunk": chunk, "dots_n_chunks": n_chunks}
+        return {**super().run_notes(loaded),
+                "dots_chunk": chunk, "dots_n_chunks": n_chunks}
 
     def operate(self, loaded: Handle) -> Handle:
         self.check_handle(loaded, "ct")
@@ -136,7 +142,7 @@ class LogRegBenchmark(HEBenchmark):
             if pad:
                 xd = torch.cat([xd, torch.zeros_like(xd[:pad])], dim=0)
             parts = [
-                self._dots_impl(w, replace(x, data=xd[i : i + chunk]))
+                self._stage_dots(w, replace(x, data=xd[i : i + chunk]))
                 for i in range(0, n_chunks * chunk, chunk)
             ]
             dots = replace(
@@ -144,8 +150,8 @@ class LogRegBenchmark(HEBenchmark):
                 data=torch.cat([pt.data for pt in parts], dim=0)[:batch],
             )
         else:
-            dots = self._dots_impl(w, x)
-        out = self._sigmoid_impl(self._collapse_impl(dots), b)
+            dots = self._stage_dots(w, x)
+        out = self._stage_sigmoid(self._stage_collapse(dots), b)
         return Handle(tag="logreg_result", payload=out)
 
     def decrypt(self, stored: Handle) -> Handle:

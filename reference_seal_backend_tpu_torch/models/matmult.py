@@ -48,6 +48,7 @@ class _MatMultBase(HEBenchmark):
         self.c0 = p["cols_m0"]
         self.c1 = p["cols_m1"]
         super().__init__(descriptor, params, device)
+        self._op_graph = self.graph_with_keys(self._operate_impl)
 
     def encrypt(self, encoded: Handle) -> Handle:
         self.check_handle(encoded, "pt")
@@ -57,7 +58,7 @@ class _MatMultBase(HEBenchmark):
     def operate(self, loaded: Handle) -> Handle:
         self.check_handle(loaded, "ct")
         m0, m1 = loaded.payload
-        out = self._operate_impl(m0, m1)
+        out = self._op_graph(m0, m1)
         return self.handle("result", out, meta=loaded.meta)
 
     def decrypt(self, stored: Handle) -> Handle:

@@ -48,7 +48,7 @@ def sides(request):
     steps = jcomp.collapse_rotation_steps(max(COUNTS))
     elts = [pow(5, s % (N // 2), 2 * N) for s in steps]
     jk = jkeys.keygen(jc, seed=21, galois_elts=elts, need_relin=True)
-    tk = convert.keyset_from_numpy(jax_keyset_to_numpy(jk))
+    tk = convert.keyset_from_numpy(jax_keyset_to_numpy(jk), device="cpu")
     rng = np.random.default_rng(9)
     enc = jckks.CkksEncoder(jc)
     er = jckks.CkksEncryptor(jc, jk, seed=21)

@@ -1,4 +1,5 @@
-"""The CUDA NTT kernels against their plain PyTorch versions, on the card.
+"""The CUDA NTT kernels against their plain PyTorch versions, and the CUDA
+graphs of ``operate``'s stages against the eager stages, on the card.
 
 Needs an NVIDIA GPU and ``nvcc``; skips elsewhere.  Run on the GPU machine:
 
@@ -67,19 +68,20 @@ def test_limb_slice_view_goes_in_without_a_copy(card, n, start, nl):
     assert not part.is_contiguous()
     assert part.data_ptr() == whole.data_ptr() + 4 * start * n
     assert ntt_cuda._row_layout(part, n) == (8, 3 * n)
+    from reference_seal_backend_tpu_torch.utils import profile_operate
+
     dense = part.contiguous()
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CUDA]
     before = dict(ntt_cuda.launches)
-    with torch.profiler.profile(activities=acts) as prof:
-        got_f = plan.fwd(part, lo=start)
-        got_i = plan.inv(part, lo=start)
-        torch.cuda.synchronize()
+    got_f = plan.fwd(part, lo=start)
+    got_i = plan.inv(part, lo=start)
     assert ntt_cuda.launches["ntt_fwd"] == before["ntt_fwd"] + 1
     assert ntt_cuda.launches["ntt_inv"] == before["ntt_inv"] + 1
-    kernels = [e.key for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    assert kernels and all("ntt_" in k for k in kernels), kernels
+    # traced again (a padded trace, whole at both ends): the two launches
+    # are the only kernels, no copy of the view
+    traced = profile_operate.profile_run(lambda: (
+        plan.fwd(part, lo=start), plan.inv(part, lo=start), torch.cuda.synchronize()))
+    assert traced["ntt_launches"] == traced["kernel_launches"] == 2, traced
     assert got_f.is_contiguous() and got_i.is_contiguous()
     assert torch.equal(got_f, plan.fwd_plain(dense, lo=start))
     assert torch.equal(got_i, plan.inv_plain(dense, lo=start))
@@ -109,7 +111,10 @@ def test_runner_on_the_card(card):
 
     res = run_all(["ckks_dot_product_latency"], device="cuda", verbose=False,
                   params={"poly_modulus_degree": 2048, "sec_level": 0})
-    assert res[0].passed and res[0].ntt_launches_per_operate > 0
+    # the warm-up launches the kernels (eagerly, then into the graph); the
+    # timed operates replay the graph and launch nothing from Python
+    assert res[0].passed and res[0].ntt_launches_warmup > 0
+    assert res[0].ntt_launches_per_operate == 0 and res[0].notes["graph_replays"] > 0
 
 
 def test_bfv_multiply_on_the_card_equals_the_cpu(card):
@@ -168,6 +173,119 @@ def test_capi_library_on_the_card(card, monkeypatch):
     np.testing.assert_allclose(out[0][0], float(a[0] @ b[0]), atol=5e-5, rtol=0)
     lib.rsbtpu_benchmark_destroy(bid)
     lib.rsbtpu_engine_destroy(eid)
+
+
+def _staged_bench(name, params, samples):
+    import numpy as np
+
+    from reference_seal_backend_tpu_torch.engine import runner
+    from reference_seal_backend_tpu_torch.engine.registry import Engine
+
+    engine = Engine("cuda")
+    desc = engine.find(name)
+    bench = engine.create_benchmark(desc, params)
+    inputs, _ = runner.gen_inputs(desc, bench.params, np.random.default_rng(5),
+                                  *samples)
+    return bench, bench.load(bench.encrypt(bench.encode(inputs)))
+
+
+@pytest.mark.parametrize("name,params,samples,replays", [
+    ("ckks_dot_product_latency",
+     {"poly_modulus_degree": 4096, "n": 100, "sec_level": 0}, (1, 1), 1),
+    ("bfv_eltwise_mult_latency", {}, (1, 1), 1),  # registered: N = 8192
+    # a batch of 10 in chunks of 4: three replays of the dots stage
+    ("ckks_logistic_regression_poly_d3_offline",
+     {"poly_modulus_degree": 8192, "sec_level": 0, "batch_size": 10,
+      "dots_chunk": 4}, (1, 10), 3 + 2),
+])
+def test_replayed_operate_equals_eager(card, name, params, samples, replays):
+    """Each stage of ``operate`` captured once and replayed: the first
+    call's result equals the eager stages' integer for integer and outlives
+    the later calls; a replay moves no launch counter, and its trace counts
+    the NTT kernels the eager ``operate`` launches; releasing the graphs
+    gives their memory back."""
+    from reference_seal_backend_tpu_torch.utils import profile_operate, staging
+
+    bench, loaded = _staged_bench(name, params, samples)
+    staging.reset_counts()
+    first = bench.operate(loaded)
+    captured = staging.counts["captures"]
+    assert captured == len(bench._stages)
+    bench.operate(loaded)
+    before, replayed = dict(ntt_cuda.launches), staging.counts["replays"]
+    last = bench.operate(loaded)
+    torch.cuda.synchronize()
+    assert ntt_cuda.launches == before
+    assert staging.counts["replays"] - replayed == replays
+    assert staging.counts["captures"] == captured
+    traced = profile_operate.profile_run(lambda: bench.block(bench.operate(loaded)))
+    with staging.eager(bench):
+        before = dict(ntt_cuda.launches)
+        want = bench.operate(loaded)
+        torch.cuda.synchronize()
+        launched = sum(ntt_cuda.launches[k] - before[k] for k in before)
+    assert traced["ntt_launches"] == launched > 0
+    assert staging.counts["captures"] == captured
+    for got in (first, last):
+        ct, ref = got.payload, want.payload
+        assert (ct.level, ct.scale, ct.is_ntt) == (ref.level, ref.scale, ref.is_ntt)
+        assert torch.equal(ct.data, ref.data)
+    assert first.payload.data.data_ptr() != last.payload.data.data_ptr()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved()
+    bench.release_graphs()
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_reserved() < held
+    assert torch.equal(first.payload.data, want.payload.data)
+
+
+def test_a_capture_inside_a_capture_raises(card):
+    """A stage that calls another stage of the same benchmark while it is
+    being captured raises (one capture at a time); the guard is free
+    afterwards."""
+    bench, loaded = _staged_bench(
+        "ckks_eltwise_add_latency",
+        {"poly_modulus_degree": 2048, "n": 8, "sec_level": 0}, (1, 1))
+    inner = bench.graph_with_keys(bench._operate_impl)
+    outer = bench.graph_with_keys(lambda a, b: inner(a, b))
+    with pytest.raises(RuntimeError, match="one capture at a time"):
+        outer(*loaded.payload)
+    assert not bench._capture_guard.locked()
+    assert bench.operate(loaded).payload.data.is_cuda
+
+
+def test_a_stage_that_cannot_be_captured_raises(card):
+    """A stage that synchronises with the host cannot be captured: the call
+    raises, naming the stage and the CUDA error, and nothing reruns it
+    eagerly.  The failed capture is ended: the card is as it was, and the
+    benchmark's own stage then captures and replays equal to its eager
+    run."""
+    from reference_seal_backend_tpu_torch.utils import staging
+
+    bench, loaded = _staged_bench(
+        "ckks_eltwise_add_latency",
+        {"poly_modulus_degree": 2048, "n": 8, "sec_level": 0}, (1, 1))
+    runs = []
+
+    def syncs(a, b):
+        runs.append(1)
+        return float(a.data.sum().item())
+
+    stage = bench.graph_with_keys(syncs)
+    stream = torch.cuda.current_stream()
+    with pytest.raises(RuntimeError, match="syncs: CUDA graph capture failed"):
+        stage(*loaded.payload)
+    assert len(runs) == 2  # the warm-up and the capture, no eager rerun
+    assert stage.captures == 0 and not bench._capture_guard.locked()
+    assert torch.cuda.current_stream() == stream
+    assert not torch.cuda.is_current_stream_capturing()
+    torch.cuda.synchronize()
+    got = [bench.operate(loaded) for _ in range(2)]
+    assert bench._op_graph.captures == 1 and bench._op_graph.replays == 2
+    with staging.eager(bench):
+        want = bench.operate(loaded)
+    for out in got:
+        assert torch.equal(out.payload.data, want.payload.data)
 
 
 @pytest.mark.parametrize("plan_of", ["data", "behz"])

@@ -106,7 +106,7 @@ def build(name):
     assert (tc.L, tc.plan.lazy) == (CONTEXTS[name]["n_data_primes"], True)
     jk = jkeys.keygen(jc, seed=5, galois_elts=[pow(5, s, 2 * N) for s in STEPS],
                       need_relin=True)
-    tk = convert.keyset_from_numpy(jax_keyset_to_numpy(jk))
+    tk = convert.keyset_from_numpy(jax_keyset_to_numpy(jk), device="cpu")
     rng = np.random.default_rng(7)
     vals = rng.integers(0, jc.t, (2, BATCH, N))
     enc = jbfv.BfvBatchEncoder(jc)

@@ -230,7 +230,7 @@ def depth2():
     jc, tc = contexts(2048)
     assert tc.L == 6
     jk = jkeys.keygen(jc, seed=5, need_relin=True)
-    tk = convert.keyset_from_numpy(jax_keyset_to_numpy(jk))
+    tk = convert.keyset_from_numpy(jax_keyset_to_numpy(jk), device="cpu")
     rng = np.random.default_rng(8)
     jct = jckks.CkksEncryptor(jc, jk, seed=5).encrypt_pt(
         jckks.CkksEncoder(jc).encode(rng.uniform(-1, 1, jc.slots)))

@@ -114,12 +114,13 @@ def batch():
     jc, tc = contexts(N)
     elts = [pow(5, 2, 2 * N)]
     jk = jkeys.keygen(jc, seed=5, galois_elts=elts, need_relin=True)
-    tk = convert.keyset_from_numpy(jax_keyset_to_numpy(jk))
+    tk = convert.keyset_from_numpy(jax_keyset_to_numpy(jk), device="cpu")
     enc, er = jckks.CkksEncoder(jc), jckks.CkksEncryptor(jc, jk, seed=5)
     rng = np.random.default_rng(7)
     cts = [er.encrypt_pt(enc.encode(rng.uniform(-1, 1, jc.slots))) for _ in range(8)]
     jct = replace(cts[0], data=jnp.stack([c.data for c in cts]))
-    tct = convert.ciphertext_from_numpy(np.asarray(jct.data), jct.level, jct.scale)
+    tct = convert.ciphertext_from_numpy(
+        np.asarray(jct.data), jct.level, jct.scale, device="cpu")
     return tc, tk, JEvaluator(jc, jk), jct, tct
 
 

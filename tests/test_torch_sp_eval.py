@@ -50,7 +50,7 @@ def _sides(jc, tc, steps, seed, scheme=jckks):
     (JAX-made, carried across as numpy)."""
     jk = jkeys.keygen(jc, seed=seed, need_relin=True,
                       galois_elts=[pow(5, s, 2 * N) for s in steps])
-    tk = convert.keyset_from_numpy(jax_keyset_to_numpy(jk))
+    tk = convert.keyset_from_numpy(jax_keyset_to_numpy(jk), device="cpu")
     rng = np.random.default_rng(seed)
     if scheme is jckks:
         enc, er = jckks.CkksEncoder(jc), jckks.CkksEncryptor(jc, jk, seed=seed)

@@ -94,7 +94,7 @@ def test_dp_by_sp_mesh():
     evaluator."""
     jc, tc = contexts(N)
     jk = jkeys.keygen(jc, seed=5, need_relin=True)
-    tk = convert.keyset_from_numpy(jax_keyset_to_numpy(jk))
+    tk = convert.keyset_from_numpy(jax_keyset_to_numpy(jk), device="cpu")
     enc, er = jckks.CkksEncoder(jc), jckks.CkksEncryptor(jc, jk, seed=5)
     rng = np.random.default_rng(2)
     cts = [er.encrypt_pt(enc.encode(rng.uniform(-1, 1, jc.slots))) for _ in range(8)]
@@ -104,8 +104,8 @@ def test_dp_by_sp_mesh():
     spe = sp_eval.SpEvaluator(tc, tk, mesh, batch_axes=("dp",))
     jev = JEvaluator(jc, jk)
     want = jax.jit(lambda a, b: jev.rescale_to_next(jev.relinearize(jev.multiply(a, b))))(ja, jb)
-    sa, sb = (spe.shard(convert.ciphertext_from_numpy(np.asarray(c.data), c.level, c.scale))
-              for c in (ja, jb))
+    sa, sb = (spe.shard(convert.ciphertext_from_numpy(
+        np.asarray(c.data), c.level, c.scale, device="cpu")) for c in (ja, jb))
     assert sa.data.spec == ("dp", None, None, None, "sp")
     assert sa.data.blocks[1, 3].shape == (2, 2, tc.L, 128, N // 128 // 4)
     got = spe.rescale_to_next(spe.relinearize(spe.multiply(sa, sb)))

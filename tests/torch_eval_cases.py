@@ -46,7 +46,7 @@ def build_sides(digit_group):
     assert tc.n_special == (digit_group or 1)
     elts = [pow(5, s, 2 * N) for s in STEPS] + [2 * N - 1]
     jk = jkeys.keygen(jc, seed=11, galois_elts=elts, need_relin=True)
-    tk = convert.keyset_from_numpy(jax_keyset_to_numpy(jk))
+    tk = convert.keyset_from_numpy(jax_keyset_to_numpy(jk), device="cpu")
     rng = np.random.default_rng(7)
     enc = jckks.CkksEncoder(jc)
     er = jckks.CkksEncryptor(jc, jk, seed=11)

@@ -80,7 +80,7 @@ def build(digit_group):
     assert (tc.L, tc.digit_group, tc.plan.lazy) == (6, digit_group or 1, True)
     jk = jkeys.keygen(jc, seed=5, galois_elts=[pow(5, s, 2 * N) for s in STEPS],
                       need_relin=True)
-    tk = convert.keyset_from_numpy(jax_keyset_to_numpy(jk))
+    tk = convert.keyset_from_numpy(jax_keyset_to_numpy(jk), device="cpu")
     enc, er = jckks.CkksEncoder(jc), jckks.CkksEncryptor(jc, jk, seed=5)
     rng = np.random.default_rng(7)
     cts = [er.encrypt_pt(enc.encode(rng.uniform(-1, 1, jc.slots))) for _ in range(BATCH)]
@@ -96,7 +96,8 @@ def build(digit_group):
 
 
 def to_port(jct):
-    return convert.ciphertext_from_numpy(np.asarray(jct.data), jct.level, jct.scale)
+    return convert.ciphertext_from_numpy(
+        np.asarray(jct.data), jct.level, jct.scale, device="cpu")
 
 
 def run(built, mesh_kind, lazy, monkeypatch):

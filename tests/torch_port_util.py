@@ -56,11 +56,13 @@ def jax_keyset_to_numpy(ks) -> dict:
 
 def ct_to_port(ct):
     """JAX Ciphertext -> port Ciphertext (CPU) with the same residues."""
-    return convert.ciphertext_from_numpy(np.asarray(ct.data), ct.level, ct.scale)
+    return convert.ciphertext_from_numpy(
+        np.asarray(ct.data), ct.level, ct.scale, device="cpu")
 
 
 def pt_to_port(pt):
-    return convert.plaintext_from_numpy(np.asarray(pt.data), pt.level, pt.scale)
+    return convert.plaintext_from_numpy(
+        np.asarray(pt.data), pt.level, pt.scale, device="cpu")
 
 
 def assert_same_ct(got, want):
