@@ -91,11 +91,21 @@ Phases (each prints one JSON line; any failure ends the run non-zero):
    ``sp_shard`` 1 (a one-device mesh) and 4 (four cards where four are
    visible, else four virtual devices of the card:
    ``RSB_TORCH_VIRTUAL_DEVICES=4``, set for this phase only).  Every decode
-   must equal the flat run's.  Per run: ``operate_ms`` (median of 3 warm
-   calls), set-up seconds, peak device memory, NTT kernel launches per
-   ``operate`` and the collectives of one ``operate``
-   (``sp_eval.collective_stats``); an sp run captures and replays no graph
-   (its stages run eagerly).  Then the sharded transforms against K1
+   must equal the flat run's.  The mesh lies on one device, so every stage
+   of an sp ``operate`` is one CUDA graph, captured in the first call and
+   replayed after (``utils/staging.py``, the counterpart of the JAX
+   package's ``jax.jit`` of the sp stage): each run must capture each stage
+   once and replay every stage in every timed ``operate``; the last timed
+   result, read after the later calls, must equal the eager stages'
+   (``staging.eager``) integer for integer, block for block; and the
+   collectives credited to a replayed ``operate`` must equal those of an
+   eager one (``sp_eval.collective_stats``).  Per run: ``operate_ms``
+   (median of 3 timed replays), set-up seconds, peak device memory on each
+   device, NTT kernel launches and graph replays per ``operate``, the
+   collectives of one ``operate``; replayed and eager ``operate_ms``
+   (median of 3 each, in turns), device busy time and kernels of one
+   traced replay (no NTT kernel: the sp path runs none), the stages'
+   warm-up and capture seconds.  Then the sharded transforms against K1
    (``epilogue`` True and False) and K2 on every shape the sp runs handed
    ``parallel/sharded_ntt.py`` (noted in its ``call_log``: the data plans
    and the BEHZ plan over q u Bsk), at sp = 1 and 4, tolerance 0.
@@ -115,19 +125,24 @@ Phases (each prints one JSON line; any failure ends the run non-zero):
    multiply per limb block), decoded exactly to the dot products mod t;
    (e) (b)'s ciphertexts switched to 13 limbs, a level limb = 2 does not
    divide (replicated over the limb axis), multiply -> relinearize.  Each
-   equal to the flat ``Evaluator`` integer for integer.  Per case: host ms
-   of the chain beside the flat chain's (median of 3 warm calls), the
-   collectives of one chain, K1 / K2 launches of one warm chain, peak
-   device memory; (a), (b), (d) and (e) must launch both kernels, (a),
-   (b) and (d) at the top block's first limb too, and every transform
-   must launch its kernel (no plain version).
+   placed chain runs eagerly and staged (``staging.stage`` over its mesh:
+   one CUDA graph, the counterpart of the JAX package's ``jax.jit`` of the
+   same chain), each equal to the flat ``Evaluator`` integer for integer;
+   the collectives credited to a replay must equal the eager chain's, and
+   the NTT kernels of a replay, counted in its padded traces, the eager
+   chain's launches.  Per case: host ms of the staged and the eager chain
+   (median of 3 each, in turns) beside the flat chain's, the collectives of
+   one chain, K1 / K2 launches of one warm eager chain, the graph's warm-up
+   and capture seconds, peak device memory; (a), (b), (d) and (e) must
+   launch both kernels, (a), (b) and (d) at the top block's first limb
+   too, and every transform must launch its kernel (no plain version).
 8. the ``kernels`` line (``launches``: the main-path run, counted where the
    wrapper launches: the eager warm-ups, the captures and the eager
    ``operate`` calls held against the replays; ``sp_path_launches``:
    the sp runs of ``sp_path``; ``limb_path_launches``: the placed chains of
-   ``limb_path``; ``capi_path_launches``: the ``rsbtpu_*`` calls of
-   ``capi_path`` (b); each counted from 0), the card's name and power
-   limit, and the result line.
+   ``limb_path``, eager, warmed up and captured; ``capi_path_launches``:
+   the ``rsbtpu_*`` calls of ``capi_path`` (b); each counted from 0), the
+   card's name and power limit, and the result line.
 """
 
 from __future__ import annotations
@@ -545,8 +560,11 @@ def phase_kernel_times(device):
 
 def same_result(a, b) -> bool:
     """Two ``operate`` results equal integer for integer: the same structure,
-    the same ``level`` / ``scale`` / ``is_ntt``, equal tensors."""
+    the same ``level`` / ``scale`` / ``is_ntt``, equal tensors; sharded
+    data on the same mesh and spec, equal block for block."""
     from reference_seal_backend_tpu_torch.models.base import Handle
+    from reference_seal_backend_tpu_torch.parallel.mesh import ShardedTensor
+    from reference_seal_backend_tpu_torch.parallel.sp_eval import SpCiphertext
     from reference_seal_backend_tpu_torch.schemes.core import Ciphertext, Plaintext
 
     if isinstance(a, Handle):
@@ -555,6 +573,13 @@ def same_result(a, b) -> bool:
     if isinstance(a, torch.Tensor):
         return isinstance(b, torch.Tensor) and a.dtype == b.dtype \
             and a.shape == b.shape and torch.equal(a, b)
+    if isinstance(a, ShardedTensor):
+        return isinstance(b, ShardedTensor) and a.mesh is b.mesh \
+            and a.spec == b.spec and \
+            all(same_result(x, y) for x, y in zip(a.blocks.flat, b.blocks.flat))
+    if isinstance(a, SpCiphertext):
+        return isinstance(b, SpCiphertext) and (a.level, a.scale) == (b.level, b.scale) \
+            and same_result(a.data, b.data)
     if isinstance(a, (Ciphertext, Plaintext)):
         return type(a) is type(b) and \
             (a.level, a.scale, a.is_ntt) == (b.level, b.scale, b.is_ntt) \
@@ -573,7 +598,8 @@ def compare_with_eager(bench, loaded, result):
     eager one integer for integer; unless a replay moves no launch counter
     and the eager ``operate`` launches as many NTT kernels in every call;
     and unless the traces of the replay count the NTT kernels the eager
-    ``operate`` launched (``EXPECTED_LAUNCHES`` where given)."""
+    ``operate`` launched (``EXPECTED_LAUNCHES`` where given; none under
+    ``sp_shard``).  Sharded results are compared block for block."""
     from reference_seal_backend_tpu_torch.utils import profile_operate
 
     t0 = time.perf_counter()
@@ -586,7 +612,8 @@ def compare_with_eager(bench, loaded, result):
     if rep["ntt_launches_per_operate"] != [0] or len(counted) != 1:
         fail(f"{name}: NTT launches counted per operate: replayed "
              f"{rep['ntt_launches_per_operate']}, eager {counted}")
-    want = EXPECTED_LAUNCHES.get(name, counted[0])
+    # an sp benchmark's transforms are the sharded ones: no K1 / K2
+    want = 0 if bench.sp_shard else EXPECTED_LAUNCHES.get(name, counted[0])
     if not rep["ntt_launches"] == eag["ntt_launches"] == counted[0] == want:
         fail(f"{name}: NTT kernels per operate: traces of the replay "
              f"{rep['ntt_launches_each']} (all kernels "
@@ -695,11 +722,13 @@ def phase_main_path(device):
 
 def _seven_steps_timed(engine, desc, params, inputs, devices):
     """One benchmark through the seven steps: set-up seconds, a warm-up
-    ``operate``, ``SP_TIMED`` timed ones (NTT kernel launches of each), the
-    decode, and the peak device memory on each of ``devices`` over it all
-    (with what the process held there before it began).  Returns the
-    benchmark, its loaded operands, the decode and the row."""
+    ``operate`` (its stages warmed up, captured and replayed once), ``SP_TIMED``
+    timed ones (NTT kernel launches and graph replays of each), the decode,
+    and the peak device memory on each of ``devices`` over it all (with what
+    the process held there before it began).  Returns the benchmark, its
+    loaded operands, the last timed result, the decode and the row."""
     from reference_seal_backend_tpu_torch.ops.cuda import ntt as ntt_cuda
+    from reference_seal_backend_tpu_torch.utils import staging
 
     held = []
     for dev in devices:
@@ -711,19 +740,22 @@ def _seven_steps_timed(engine, desc, params, inputs, devices):
     loaded = bench.block(bench.load(bench.encrypt(bench.encode(inputs))))
     setup_s = time.perf_counter() - t0
     result = bench.block(bench.operate(loaded))
-    ms, launched = [], []
+    ms, launched, replays = [], [], []
     for _ in range(SP_TIMED):
         before = sum(ntt_cuda.launches.values())
+        replayed = staging.counts["replays"]
         t = time.perf_counter()
         result = bench.block(bench.operate(loaded))
         ms.append((time.perf_counter() - t) * 1e3)
         launched.append(sum(ntt_cuda.launches.values()) - before)
+        replays.append(staging.counts["replays"] - replayed)
     out = bench.decode(bench.decrypt(bench.store(result)))
     row = {"operate_ms": statistics.median(ms), "operate_ms_each": ms,
-           "ntt_kernel_launches_per_operate": launched, "setup_s": setup_s,
+           "ntt_kernel_launches_per_operate": launched,
+           "graph_replays_per_operate": replays, "setup_s": setup_s,
            "peak_device_bytes": [torch.cuda.max_memory_allocated(d) for d in devices],
            "held_before_bytes": held}
-    return bench, loaded, out, row
+    return bench, loaded, result, out, row
 
 
 def sp_transform_checks(views, device):
@@ -788,10 +820,13 @@ def sp_transform_cost(device):
     ``[1, 1, 6, 6, 8192]``), the sharded ``fwd`` / ``inv`` at each mesh size
     of ``SP_SIZES`` and K1 / K2 on the same data — host milliseconds per call
     (median of 5, each ending in a synchronise), and from one profiled call
-    (``torch.profiler``) the CUDA kernels launched and their device time."""
+    (``profile_operate.profile_run``: a padded trace, retried where the
+    tracer dropped its first records) the CUDA kernels launched and their
+    device time."""
     from reference_seal_backend_tpu_torch.parallel import mesh as mesh_mod
     from reference_seal_backend_tpu_torch.parallel import sharded_ntt
     from reference_seal_backend_tpu_torch.schemes.params import make_ckks_context
+    from reference_seal_backend_tpu_torch.utils import profile_operate
     from reference_seal_backend_tpu_torch.utils.device import mesh_devices
     from reference_seal_backend_tpu_torch.utils.kernel_bench import random_residues
 
@@ -812,16 +847,11 @@ def sp_transform_cost(device):
             call()
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t) * 1e3)
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            call()
-            torch.cuda.synchronize()
-        kernels = [(ev.count, ev.self_device_time_total) for ev in prof.key_averages()
-                   if ev.device_type == torch.autograd.DeviceType.CUDA
-                   and (ev.self_device_time_total or 0) > 0]
+        traced = profile_operate.profile_run(lambda: (call(), torch.cuda.synchronize()))
         return {"host_ms": statistics.median(ms),
-                "cuda_kernel_launches": sum(c for c, _ in kernels),
-                "device_busy_ms": sum(t for _, t in kernels) / 1e3}
+                "cuda_kernel_launches": traced["kernel_launches"],
+                "device_busy_ms": traced["device_busy_ms"],
+                "cuda_kernel_launches_each": traced["kernel_launches_each"]}
 
     rows = {"shape": [*lead, nl, plan.n],
             "K1": measure(lambda: plan.fwd(dense)),
@@ -835,11 +865,78 @@ def sp_transform_cost(device):
     return rows
 
 
+def sp_staged_vs_eager(bench, loaded, result, replays, name, k):
+    """An sp run's stages against their eager runs, on the benchmark its
+    seven steps just ran: fails unless each stage was captured once and
+    every timed ``operate`` replayed each of its stages (``replays``: the
+    graph replays of each; ``result``, the last timed one, is a replay),
+    unless ``result``, read after the later
+    calls, equals the eager stages' integer for integer, block for block,
+    and unless the collectives credited to a replayed ``operate`` equal
+    those of an eager one.  Returns the row: replayed and eager
+    ``operate_ms`` (median of ``SP_TIMED`` each, in turns), busy time and
+    kernels of one traced replay (no NTT kernel: the sp path launches no
+    K1 / K2), the graphs' warm-up and capture seconds, the collectives."""
+    from reference_seal_backend_tpu_torch.parallel import sp_eval
+    from reference_seal_backend_tpu_torch.utils import profile_operate, staging
+
+    t0 = time.perf_counter()
+    notes = bench.run_notes(loaded)
+    captures = [s.captures for s in bench._stages]
+    if not captures or captures != [1] * len(captures) or notes["stages"] != "staged" \
+            or replays != [len(captures)] * SP_TIMED:
+        fail(f"sp_path: {name} at sp = {k}: stages captured {captures} "
+             f"({notes['stages']}), not each once, or timed operates replayed "
+             f"{replays}, not every stage each")
+    eager, cmp = profile_operate.replayed_and_eager(
+        bench, loaded, rounds=SP_TIMED, traced=("replayed",))
+    if not same_result(result, eager):
+        fail(f"sp_path: {name} at sp = {k}: the replayed result differs from "
+             f"the eager stages'")
+    rep = cmp["replayed"]
+    if rep["ntt_launches"] != 0 or cmp["eager"]["ntt_launches_per_operate"] != [0]:
+        fail(f"sp_path: {name} at sp = {k}: NTT kernels in a replay "
+             f"{rep['ntt_launches_each']} (pads seen {rep['pads_seen_each']}), "
+             f"launched eagerly {cmp['eager']['ntt_launches_per_operate']}")
+    replayed = sp_eval.collective_stats(lambda: bench.block(bench.operate(loaded)))
+    with staging.eager(bench):
+        eager_stats = sp_eval.collective_stats(lambda: bench.block(bench.operate(loaded)))
+    if replayed != eager_stats:
+        fail(f"sp_path: {name} at sp = {k}: collectives credited to a replay "
+             f"{replayed}, of the eager stages {eager_stats}")
+    return {
+        "stage_calls_per_operate": len(bench._stages),
+        "replayed_operate_ms": rep["operate_ms"],
+        "eager_operate_ms": cmp["eager"]["operate_ms"],
+        "replayed_over_eager": cmp["replayed_over_eager"],
+        "replayed_operate_ms_each": rep["operate_ms_each"],
+        "eager_operate_ms_each": cmp["eager"]["operate_ms_each"],
+        "replayed_event_ms": rep["event_ms"],
+        "eager_event_ms": cmp["eager"]["event_ms"],
+        "replay_device_busy_ms": rep["device_busy_ms"],
+        "replay_kernels": rep["kernel_launches"],
+        "replay_kernels_each": rep["kernel_launches_each"],
+        "replay_ntt_kernels": rep["ntt_launches"],
+        "replay_idle_share": rep["idle_share"],
+        "replay_top_kernels": rep["top_kernels"][:3],
+        "graph_warmup_s": notes["graph_warmup_s"],
+        "graph_capture_s": notes["graph_capture_s"],
+        "graph_captures": notes["graph_captures"],
+        "graph_replays": notes["graph_replays"],
+        "equal_to_eager": True, "tolerance": 0,
+        "collectives_per_operate": replayed,
+        "collectives_equal_to_eager": True,
+        "seconds": time.perf_counter() - t0,
+    }
+
+
 def phase_sp_path(device):
     """``sp_path``: ``SP_PATH`` flat and at every mesh size of ``SP_SIZES``,
-    decodes equal to the flat run's, then :func:`sp_transform_checks`.  The
-    NTT launch counts are set to 0 just before each sp run (its seven steps
-    and its ``collective_stats`` call) and read just after; the flat runs'
+    decodes equal to the flat run's, each sp run's stages replayed and held
+    against their eager runs (:func:`sp_staged_vs_eager`), then
+    :func:`sp_transform_checks`.  The NTT launch counts are set to 0 just
+    before each sp run (its seven steps and that comparison) and read just
+    after; the flat runs'
     launches are not among them.  Returns the sp runs' launches summed and
     the transforms' worst errors."""
     import numpy as np
@@ -870,8 +967,9 @@ def phase_sp_path(device):
             desc = engine.find(name)
             inputs, truth = runner.gen_inputs(
                 desc, dict(desc.default_params), np.random.default_rng(SEED), 1, 1)
-            _, _, flat_out, flat_row = _seven_steps_timed(
+            flat_bench, _, _, flat_out, flat_row = _seven_steps_timed(
                 engine, desc, None, inputs, [device])
+            flat_bench.release_graphs()
             tol = 0.0 if desc.scheme is Scheme.BFV else runner.CKKS_ATOL[desc.workload]
             err = cleartext_error(desc, flat_out, truth())
             if err > tol:
@@ -881,7 +979,7 @@ def phase_sp_path(device):
                 torch.cuda.synchronize()
                 ntt_cuda.reset_launches()
                 staging.reset_counts()
-                bench, loaded, out, row = _seven_steps_timed(
+                bench, loaded, result, out, row = _seven_steps_timed(
                     engine, desc, {"sp_shard": k}, inputs,
                     list(dict.fromkeys(mesh_devices(device, k))))
                 if not isinstance(bench.ev, sp_eval.SpEvaluator) or \
@@ -891,14 +989,12 @@ def phase_sp_path(device):
                         np.array_equal(a, b) for a, b in zip(out, flat_out)):
                     fail(f"sp_path: {name} at sp = {k}: the decode differs from "
                          f"the flat run's")
-                row["collectives_per_operate"] = sp_eval.collective_stats(
-                    lambda: bench.block(bench.operate(loaded)))
+                row.update(sp_staged_vs_eager(
+                    bench, loaded, result, row["graph_replays_per_operate"], name, k))
                 torch.cuda.synchronize()
                 row["ntt_kernel_launches"] = dict(ntt_cuda.launches)
                 row["graphs"] = dict(staging.counts)
-                if any(staging.counts.values()):
-                    fail(f"sp_path: {name} at sp = {k} staged a graph: "
-                         f"{staging.counts}")
+                bench.release_graphs()
                 for kname, n in ntt_cuda.launches.items():
                     launches[kname] += n
                 row["equal_to_flat"] = True
@@ -924,40 +1020,57 @@ def phase_sp_path(device):
     return launches, transforms["max_abs_err"]
 
 
-def _host_ms(call, rounds):
-    """Host milliseconds of ``call()`` ending in a synchronise: the median
-    of ``rounds`` calls after one warm-up, and each call's."""
-    call()
-    torch.cuda.synchronize()
-    ms = []
-    for _ in range(rounds):
-        t = time.perf_counter()
+def _in_turns(calls, rounds):
+    """Host milliseconds of each of ``calls`` (name -> call, each ending in
+    a synchronise), taken in turns after one warm-up call each: the median
+    of ``rounds`` calls of each, and every call's."""
+    for call in calls.values():
         call()
         torch.cuda.synchronize()
-        ms.append((time.perf_counter() - t) * 1e3)
-    return statistics.median(ms), ms
+    ms = {how: [] for how in calls}
+    for i in range(rounds):
+        order = list(calls) if i % 2 == 0 else list(calls)[::-1]
+        for how in order:
+            t = time.perf_counter()
+            calls[how]()
+            torch.cuda.synchronize()
+            ms[how].append((time.perf_counter() - t) * 1e3)
+    return {how: statistics.median(v) for how, v in ms.items()}, ms
 
 
-def _limb_case(name, chain, flat_args, placed_args, unplace, device, want_lo):
+def _limb_case(name, chain, flat_args, placed_args, unplace, device, want_lo,
+               mesh, placed_chain=None):
     """One case of ``limb_path``: the flat chain timed, then the placed
-    chain (its integers equal to the flat ones), timed, with its
-    collectives counted, its K1 / K2 launches and transforms counted
-    (counts from 0 before the placed runs, read after; a transform that
-    did not launch a kernel fails), its views noted and its peak device
-    memory.  Returns the row, the flat result, the launches of the placed
-    runs and the views they noted."""
+    chain (``placed_chain``, default ``chain``) eagerly and staged over
+    ``mesh`` (``staging.stage``: one CUDA graph, the counterpart of the
+    ``jax.jit`` the JAX package applies to it), each result's integers equal
+    to the flat ones, staged and eager timed in turns, the collectives of
+    each counted (the staged call's credited by its graph, equal to the
+    eager ones), its K1 / K2 launches and transforms counted (counts from 0
+    before the placed runs, read after; a transform that did not launch a
+    kernel fails), the NTT kernels of a replay counted in its padded traces
+    (equal to one eager chain's launches), its views noted and its peak
+    device memory.  Returns the row, the flat result, the launches of the
+    placed runs and the views they noted."""
+    import threading
+
     from reference_seal_backend_tpu_torch.ops import ntt as ntt_mod
     from reference_seal_backend_tpu_torch.ops.cuda import ntt as ntt_cuda
     from reference_seal_backend_tpu_torch.parallel import sp_eval
+    from reference_seal_backend_tpu_torch.utils import profile_operate, staging
 
+    placed_chain = placed_chain or chain
     want = chain(*flat_args)
-    flat_ms, flat_each = _host_ms(lambda: chain(*flat_args), LIMB_TIMED)
+    flat_ms, flat_each = _in_turns({"flat": lambda: chain(*flat_args)}, LIMB_TIMED)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
     held = torch.cuda.memory_allocated(device)
     chain(*flat_args)
     torch.cuda.synchronize()
     flat_peak = torch.cuda.max_memory_allocated(device) - held
+    staged = staging.stage(placed_chain, f"limb_path.{name}", threading.Lock(), mesh)
+    if not isinstance(staged, staging.StagedCall):
+        fail(f"limb_path ({name}): the chain over {mesh} was not staged")
 
     calls = {"ntt_fwd": 0, "ntt_inv": 0, "plain": 0}
     plan_cls = ntt_mod.NttPlan
@@ -969,6 +1082,10 @@ def _limb_case(name, chain, flat_args, placed_args, unplace, device, want_lo):
             return saved[name](self, x, *a, **k)
         return call
 
+    def same(got):
+        return torch.equal(got.data, want.data) and \
+            (got.level, got.scale) == (want.level, want.scale)
+
     plan_cls.fwd, plan_cls.inv = counted("fwd", "ntt_fwd"), counted("inv", "ntt_inv")
     plan_cls.fwd_plain = counted("fwd_plain", "plain")
     plan_cls.inv_plain = counted("inv_plain", "plain")
@@ -978,18 +1095,38 @@ def _limb_case(name, chain, flat_args, placed_args, unplace, device, want_lo):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(device)
         held = torch.cuda.memory_allocated(device)
-        got = unplace(chain(*placed_args))
+        got = unplace(placed_chain(*placed_args))
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated(device) - held
-        if not torch.equal(got.data, want.data) or \
-                (got.level, got.scale) != (want.level, want.scale):
+        if not same(got):
             fail(f"limb_path ({name}): the placed chain's result differs from flat")
-        ms, each = _host_ms(lambda: chain(*placed_args), LIMB_TIMED)
-        stats = sp_eval.collective_stats(lambda: chain(*placed_args))
+        torch.cuda.reset_peak_memory_stats(device)
+        held = torch.cuda.memory_allocated(device)
+        first = staged(*placed_args)  # warm-up, capture, replay
+        torch.cuda.synchronize()
+        staged_peak = torch.cuda.max_memory_allocated(device) - held
+        ms, each = _in_turns({
+            "staged": lambda: staged(*placed_args),
+            "eager": lambda: placed_chain(*placed_args)}, LIMB_TIMED)
+        if not same(unplace(first)) or not same(unplace(staged(*placed_args))):
+            fail(f"limb_path ({name}): the staged chain's result differs from "
+                 f"flat and from the eager placed chain")
+        stats = sp_eval.collective_stats(lambda: placed_chain(*placed_args))
+        credited = sp_eval.collective_stats(lambda: staged(*placed_args))
+        if credited != stats:
+            fail(f"limb_path ({name}): collectives credited to a replay "
+                 f"{credited}, of the eager chain {stats}")
         one = dict(ntt_cuda.launches)
-        chain(*placed_args)
+        placed_chain(*placed_args)
         torch.cuda.synchronize()
         warm = {k: ntt_cuda.launches[k] - one[k] for k in one}
+        one = dict(ntt_cuda.launches)
+        traced = profile_operate.profile_run(
+            lambda: (staged(*placed_args), torch.cuda.synchronize()))
+        if ntt_cuda.launches != one or traced["ntt_launches"] != sum(warm.values()):
+            fail(f"limb_path ({name}): NTT kernels of a replay {traced['ntt_launches_each']} "
+                 f"(traces; pads seen {traced['pads_seen_each']}), of an eager chain "
+                 f"{warm}; launched by the replays {ntt_cuda.launches}, before {one}")
         launched = {k: ntt_cuda.launches[k] - before[k] for k in before}
         views = ntt_mod.call_log
     finally:
@@ -1002,11 +1139,22 @@ def _limb_case(name, chain, flat_args, placed_args, unplace, device, want_lo):
     at_lo = {k: sorted({key[5] for key in views if key[1] == k}) for k in launched}
     if want_lo is not None and not all(want_lo in v for v in at_lo.values()):
         fail(f"limb_path ({name}): K1 / K2 not both run at lo={want_lo}: {at_lo}")
-    row = {"ms": ms, "ms_each": each, "flat_ms": flat_ms, "flat_ms_each": flat_each,
-           "equal_to_flat": True, "collectives_per_chain": stats,
-           "kernel_launches_per_warm_chain": warm, "transform_calls": calls,
+    row = {"staged_ms": ms["staged"], "eager_ms": ms["eager"],
+           "staged_over_eager": ms["staged"] / ms["eager"],
+           "staged_ms_each": each["staged"], "eager_ms_each": each["eager"],
+           "flat_ms": flat_ms["flat"], "flat_ms_each": flat_each["flat"],
+           "equal_to_flat": True, "staged_equal_to_eager": True,
+           "collectives_per_chain": stats, "collectives_credited_to_a_replay": credited,
+           "kernel_launches_per_warm_chain": warm,
+           "ntt_kernels_per_replay": traced["ntt_launches"],
+           "replay_kernels": traced["kernel_launches"],
+           "replay_device_busy_ms": traced["device_busy_ms"],
+           "graph_warmup_s": staged.warmup_s, "graph_capture_s": staged.capture_s,
+           "transform_calls": calls,
            "first_limbs": at_lo, "peak_device_bytes": peak,
+           "staged_first_call_peak_device_bytes": staged_peak,
            "flat_peak_device_bytes": flat_peak}
+    staged.release()
     return row, want, launched, views
 
 
@@ -1026,8 +1174,9 @@ def phase_limb_path(device):
     the registered BFV dot product context, a batch of 2 pairs of
     ``LIMB_DOT_N`` integers mod t, ``accumulate(relinearize(multiply),
     100)``, decoded exactly against the cleartext dot products mod t.
-    Every result equal to the flat ``Evaluator``'s.  Returns the K1 / K2
-    launches of the placed runs and the views they handed the kernels."""
+    Each placed chain eager and staged (:func:`_limb_case`), every result
+    equal to the flat ``Evaluator``'s.  Returns the K1 / K2 launches of the
+    placed runs and the views they handed the kernels."""
     import dataclasses
 
     import numpy as np
@@ -1076,7 +1225,7 @@ def phase_limb_path(device):
         dot_chain = lambda x, y: composite.accumulate(
             ev, ev.rescale_to_next(ev.relinearize(ev.multiply(x, y))), LIMB_DOT_N)
         row, want, launched, noted = _limb_case(
-            "a", dot_chain, (a, b), (place(a), place(b)), ungather, device, 3)
+            "a", dot_chain, (a, b), (place(a), place(b)), ungather, device, 3, mesh)
         got = dot.decryptor.decrypt(want).real[:, 0]
         err = float(np.abs(got - (vals[0] * vals[1]).sum(axis=-1)).max())
         if err > LIMB_DOT_ATOL:
@@ -1104,7 +1253,8 @@ def phase_limb_path(device):
         lr_chain = lambda x, y: lev.rotate_sum(
             lev.rescale_to_next(lev.relinearize(lev.multiply(x, y))), list(range(8)))
         row, _, launched, noted = _limb_case(
-            "b", lr_chain, (la, lb), (place2(la), place2(lb)), ungather, device, 7)
+            "b", lr_chain, (la, lb), (place2(la), place2(lb)), ungather, device, 7,
+            mesh2)
         row.update(mesh=mesh2.shape)
         cases["b_limb2_logreg"] = row
         for k in launches:
@@ -1116,7 +1266,8 @@ def phase_limb_path(device):
         odd_chain = lambda x, y: lev.relinearize(lev.multiply(
             lev.mod_switch_to(x, LIMB_ODD_LEVEL), lev.mod_switch_to(y, LIMB_ODD_LEVEL)))
         row, _, launched, noted = _limb_case(
-            "e", odd_chain, (la, lb), (place2(la), place2(lb)), ungather, device, 0)
+            "e", odd_chain, (la, lb), (place2(la), place2(lb)), ungather, device, 0,
+            mesh2)
         row.update(mesh=mesh2.shape, level=LIMB_ODD_LEVEL)
         cases["e_limb2_logreg_odd_level"] = row
         for k in launches:
@@ -1141,7 +1292,7 @@ def phase_limb_path(device):
             bev, bev.relinearize(bev.multiply(x, y)), LIMB_DOT_N)
         row, want, launched, noted = _limb_case(
             "d", bfv_chain, (x, y), (place(x), place(y)), ungather, device,
-            bctx.L // mesh.shape["limb"])
+            bctx.L // mesh.shape["limb"], mesh)
         got = bdot.decryptor.decrypt(want)[:, 0].astype(np.int64) % bctx.t
         exact = (ints[0] * ints[1]).sum(axis=-1) % bctx.t
         if not np.array_equal(got, exact):
@@ -1159,9 +1310,9 @@ def phase_limb_path(device):
         spe = sp_eval.SpEvaluator(ctx, dot.keys, pmesh, batch_axes=("dp",))
         sp_chain = lambda x, y: spe.rescale_to_next(spe.relinearize(spe.multiply(x, y)))
         flat_chain = lambda x, y: ev.rescale_to_next(ev.relinearize(ev.multiply(x, y)))
-        both = lambda x, y: (flat_chain if isinstance(x.data, torch.Tensor) else sp_chain)(x, y)
         row, _, _, _ = _limb_case(
-            "c", both, (a, b), (spe.shard(a), spe.shard(b)), spe.unshard, device, None)
+            "c", flat_chain, (a, b), (spe.shard(a), spe.shard(b)), spe.unshard, device,
+            None, pmesh, placed_chain=sp_chain)
         row.update(mesh=pmesh.shape)
         cases["c_dp2_sp2_process_mesh"] = row
     finally:

@@ -24,8 +24,8 @@ workload's ``operate`` graph is unchanged: the ``SpEvaluator`` stands in as
 Each stage of a workload's ``operate`` runs through
 :meth:`HEBenchmark.graph_with_keys` (``utils/staging.py``): on the card it is
 captured once per input signature as a CUDA graph and replayed, at the sites
-where the JAX package jits it (``jit_with_keys``); on the CPU it runs as it
-is.
+where the JAX package jits it (``jit_with_keys``), under ``sp_shard`` too
+where the mesh lies on one device; on the CPU it runs as it is.
 """
 
 from __future__ import annotations
@@ -184,14 +184,16 @@ class HEBenchmark(abc.ABC):
         starts while another capture of this benchmark runs raises (the JAX
         package's single-trace guard).
 
-        Under ``sp_shard`` the stage runs eagerly, by this branch and never
-        by a failed capture: it runs over ``ShardedTensor`` blocks on
-        several devices, and one CUDA graph belongs to one device."""
-        if self.sp_shard:
-            return staging.unstaged(fn)
-        stage = staging.StagedCall(
-            fn, f"{self.descriptor.name}.{fn.__name__}", self._capture_guard)
-        self._stages.append(stage)
+        Under ``sp_shard`` the stage runs over ``ShardedTensor`` blocks: it
+        is staged where the mesh lies on one device (one card, or virtual
+        devices of it), and runs eagerly on a mesh of several devices, by
+        this branch (``staging.stage``) and never by a failed capture: one
+        CUDA graph belongs to one device."""
+        stage = staging.stage(
+            fn, f"{self.descriptor.name}.{fn.__name__}", self._capture_guard,
+            self.ev.mesh if self.sp_shard else None)
+        if isinstance(stage, staging.StagedCall):
+            self._stages.append(stage)
         return stage
 
     def release_graphs(self) -> None:
@@ -337,9 +339,13 @@ class HEBenchmark(abc.ABC):
         """What the runner should report of how ``operate`` treats these
         operands, beyond its time: the graphs of its stages (captures,
         replays, seconds of the eager warm-ups and of the captures) and
-        what a workload adds."""
+        what a workload adds; ``stages`` says whether they are staged or, on
+        a mesh of several devices, eager by ``graph_with_keys``' branch."""
         stages = self._stages
+        mesh = self.ev.mesh if self.sp_shard else None
         return {
+            "stages": "staged" if mesh is None or staging.one_device(mesh) else
+            f"eager: the sp mesh spans {len(mesh.unique_devices())} devices",
             "graph_captures": sum(s.captures for s in stages),
             "graph_replays": sum(s.replays for s in stages),
             "graph_warmup_s": sum(s.warmup_s for s in stages),

@@ -38,6 +38,7 @@ caller passes others.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -53,6 +54,12 @@ COLLECTIVES = ("all-to-all", "all-gather", "collective-permute", "all-reduce")
 #: (``sp_eval.collective_stats`` sets it around one call).  A collective
 #: over a mesh axis of one device moves nothing and is not counted.
 counts: Optional[Dict[str, int]] = None
+
+
+def zero_counts() -> Dict[str, int]:
+    """A fresh :data:`counts`: every kind of ``COLLECTIVES`` and
+    ``a2a_bytes`` at 0."""
+    return {**dict.fromkeys(COLLECTIVES, 0), "a2a_bytes": 0}
 
 
 def count(kind: str, nbytes: int = 0) -> None:
@@ -659,6 +666,19 @@ def gather_index(x: ShardedTensor, index: torch.Tensor, n_tail: int,
     return ShardedTensor(blocks, mesh, lead + (None,) * (len(out_tail) - 1) + (a,))
 
 
+@functools.lru_cache(maxsize=None)
+def _roll_pieces(i: int, width: int, seg: int, shift: int) -> Tuple[Tuple[int, int, int], ...]:
+    """Where block ``i`` of :func:`roll_segments` (blocks of ``width``)
+    takes its output from: ``(source block, offset, length)`` per
+    contiguous piece, in order.  Host work, done once per shape and shift
+    (not in every call, nor in a replay of a staged call)."""
+    g = i * width + np.arange(width)
+    src = g - g % seg + (g % seg + shift) % seg
+    breaks = np.flatnonzero((np.diff(src) != 1) | (np.diff(src // width) != 0)) + 1
+    return tuple((int(src[run[0]]) // width, int(src[run[0]]) % width, len(run))
+                 for run in np.split(np.arange(width), breaks))
+
+
 def roll_segments(x: ShardedTensor, seg: int, shift: int) -> ShardedTensor:
     """``torch.roll(.., -shift)`` inside each run of ``seg`` consecutive
     entries of ``x``'s sharded last dim: ``out[j] = x[b + (j - b + shift) %
@@ -668,22 +688,16 @@ def roll_segments(x: ShardedTensor, seg: int, shift: int) -> ShardedTensor:
     a = x.spec[-1]
     mesh = x.mesh
     k = mesh.shape[a] if a else 1
-    n = x.shape[-1]
-    width = n // k
+    width = x.shape[-1] // k
     moved = False
     blocks = np.empty(mesh.devices.shape, dtype=object)
     for c in _coords(mesh):
         dev, i = mesh.devices[c], _axis_index(mesh, a, c)
-        g = i * width + np.arange(width)
-        src = g - g % seg + (g % seg + shift) % seg
-        breaks = np.flatnonzero((np.diff(src) != 1) | (np.diff(src // width) != 0)) + 1
         pieces = []
-        for run in np.split(np.arange(width), breaks):
-            s0 = int(src[run[0]])
-            q, off = s0 // width, s0 % width
+        for q, off, length in _roll_pieces(i, width, seg, shift):
             moved |= q != i
             src_blk = x.blocks[_along(mesh, a, c, q)] if a else x.blocks[c]
-            pieces.append(src_blk[..., off : off + len(run)].to(dev))
+            pieces.append(src_blk[..., off : off + length].to(dev))
         blocks[c] = torch.cat(pieces, dim=-1)
     if moved:
         count("collective-permute")

@@ -679,11 +679,13 @@ def collective_stats(fn, *args) -> Dict[str, int]:
     calls of its collective helpers (``parallel/mesh.py``).  Same keys:
     ``all-to-all``, ``all-gather``, ``collective-permute``, ``all-reduce``
     and ``a2a_bytes`` (the bytes one device's all-to-all returns, per
-    transform, as the HLO result shape gives them)."""
+    transform, as the HLO result shape gives them).  A staged call
+    (``utils/staging.py``) runs no Python in a replay: each of its graphs
+    keeps the collectives its capture counted, and every call credits
+    them here once, since the graph holds exactly those copies."""
     if mesh_mod.counts is not None:
         raise RuntimeError("collective_stats does not nest")
-    mesh_mod.counts = dict.fromkeys(mesh_mod.COLLECTIVES, 0)
-    mesh_mod.counts["a2a_bytes"] = 0
+    mesh_mod.counts = mesh_mod.zero_counts()
     try:
         fn(*args)
     finally:

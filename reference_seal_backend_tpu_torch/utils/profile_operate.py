@@ -150,11 +150,16 @@ def _event_ms(run) -> float:
     return start.elapsed_time(stop)
 
 
-def replayed_and_eager(bench, loaded, rounds: int = ROUNDS):
+def replayed_and_eager(bench, loaded, rounds: int = ROUNDS,
+                       traced=("replayed", "eager")):
     """``operate`` on ``loaded`` as the pipeline runs it (replayed: its
     stages must have been captured by an earlier call) and with its stages
-    eager, measured as the module docstring says.  Returns an eager result
-    handle and the row."""
+    eager, measured as the module docstring says; only the ways named in
+    ``traced`` are traced.  An sp benchmark (``sp_shard`` on a mesh of one
+    device) is measured the same way: ``bench.block`` synchronises every
+    device of its mesh, and since the sp path launches no K1 / K2 its
+    traces count every kernel and an NTT count of 0.  Returns an eager
+    result handle and the row."""
 
     def replayed():
         return bench.block(bench.operate(loaded))
@@ -181,7 +186,7 @@ def replayed_and_eager(bench, loaded, rounds: int = ROUNDS):
             "operate_ms_each": ms[how],
             "ntt_launches_per_operate": sorted(launched[how]),
             "event_ms": _event_ms(run),
-            **profile_run(run),
+            **(profile_run(run) if how in traced else {}),
         }
     row["replayed_over_eager"] = (
         row["replayed"]["operate_ms"] / row["eager"]["operate_ms"])

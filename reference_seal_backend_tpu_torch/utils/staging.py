@@ -1,20 +1,27 @@
 """Each stage of ``operate`` captured once as a CUDA graph and replayed.
 
 The port's counterpart of ``jax.jit`` as the JAX package applies it to a
-pipeline stage (``reference_seal_backend_tpu/models/base.py:jit_with_keys``):
-one stage, one program, dispatched once.  :class:`StagedCall` wraps a stage
-function and keeps one ``torch.cuda.CUDAGraph`` per input signature, the key
-``jax.jit`` keys a call on (:func:`signature`): every tensor leaf's shape,
-dtype, device and strides, and the static fields (``level``, ``scale``,
-``is_ntt``) of each ``Ciphertext``/``Plaintext`` among the arguments.
+pipeline stage (``reference_seal_backend_tpu/models/base.py:jit_with_keys``)
+and to the sharded chains of its parallel path: one stage, one program,
+dispatched once.  :class:`StagedCall` wraps a stage function and keeps one
+``torch.cuda.CUDAGraph`` per input signature, the key ``jax.jit`` keys a
+call on (:func:`signature`): every tensor leaf's shape, dtype, device and
+strides, which leaves are one tensor, the static fields (``level``,
+``scale``, ``is_ntt``) of each ``Ciphertext``/``Plaintext``/``SpCiphertext``
+among the arguments, and of each ``ShardedTensor`` (``parallel/mesh.py``)
+its mesh (axis names, device array), spec and global shape, its blocks the
+leaves in mesh order.
 
 On a CUDA device the first call of a signature
 
-1. copies the inputs into static buffers of their own;
+1. copies the inputs into static buffers of their own (one per distinct
+   tensor: a replicated block that is one object in several blocks stays
+   one buffer);
 2. runs the stage once eagerly on a side stream, which fills every
    first-use cache the stage reads (hoisted Galois keys, encoded plaintext
-   constants, permutation indices, BEHZ windows, the kernels' shared-memory
-   opt-in) so that nothing is built on the host during the capture;
+   constants, permutation indices, BEHZ windows, sharded key slices, the
+   kernels' shared-memory opt-in) so that nothing is built on the host
+   during the capture;
 3. captures the stage over the static buffers, and replays it.
 
 A later call copies its inputs into the static buffers, replays, and
@@ -22,7 +29,15 @@ returns the output structure noted at capture with its tensors cloned: as
 with a jitted call, a result stays valid after the next call.  The stage
 reads everything else (keys, tables) in place, so those must outlive the
 graph and stay as they were at capture: a benchmark sets its keys and its
-evaluator once (``models/base.py``).
+evaluator once (``models/base.py``).  A sharded result is rebuilt on the
+mesh object of the capture (equal by key to the caller's).
+
+One graph belongs to one device.  A stage over a mesh whose blocks all lie
+on one device (virtual devices of one card, ``utils/device.py:
+mesh_devices``) is captured as one graph there, its collectives (copies
+between blocks) inside it.  A stage over a mesh of several devices is not
+staged at all, by :func:`stage`'s branch when the stage is built
+(:func:`one_device`), never by a failed capture.
 
 On the CPU a staged call is the function itself: the CPU has no graphs.
 There is no fallback on the card: a capture or replay that fails raises,
@@ -34,9 +49,14 @@ The NTT launch counters (``ops/cuda/ntt.py:launches``) count where the
 wrapper launches its kernel: in the eager warm-up, and in the capture, which
 records the launch into the graph.  A replay runs the graph's kernels
 without Python and moves no counter: the kernels a replay ran are counted
-from a trace (``utils/profile_operate.py``).  :data:`counts` counts the
-captures and the replays themselves, and :func:`eager` runs an owner's
-stages as plain functions: the reference a staged run is held against.
+from a trace (``utils/profile_operate.py``).  The collectives of the parallel
+path are counted otherwise: each graph keeps those its capture ran
+(``parallel/mesh.py:counts``, ``a2a_bytes`` included), and while
+``sp_eval.collective_stats`` counts, every call credits them once, the
+first (warm-up, capture, replay) as a replay, since the graph holds exactly
+those copies.  :data:`counts` counts the captures and the replays
+themselves, and :func:`eager` runs an owner's stages as plain functions:
+the reference a staged run is held against.
 """
 
 from __future__ import annotations
@@ -47,10 +67,14 @@ import threading
 import time
 import weakref
 from dataclasses import dataclass, replace
-from typing import Dict, List
+from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
+from reference_seal_backend_tpu_torch.parallel import mesh as mesh_mod
+from reference_seal_backend_tpu_torch.parallel.mesh import Mesh, ShardedTensor
+from reference_seal_backend_tpu_torch.parallel.sp_eval import SpCiphertext
 from reference_seal_backend_tpu_torch.schemes.core import Ciphertext, Plaintext
 
 #: graphs captured and replayed since the last :func:`reset_counts`
@@ -62,40 +86,69 @@ def reset_counts() -> None:
         counts[k] = 0
 
 
-def _walk(x, tensors: List[torch.Tensor]):
+def _walk(x, tensors: List[torch.Tensor], seen: Dict[int, int]):
     """Key of ``x``'s structure and static fields; its tensor leaves are
-    appended to ``tensors`` in order."""
+    appended to ``tensors`` in order, each distinct tensor once (``seen``:
+    its id -> its place), a repeat keyed by the place of its first."""
     if isinstance(x, torch.Tensor):
+        if id(x) in seen:
+            return ("same tensor as leaf", seen[id(x)])
+        seen[id(x)] = len(tensors)
         tensors.append(x)
         return ("tensor", tuple(x.shape), x.dtype, x.device, x.stride())
+    if isinstance(x, ShardedTensor):
+        mesh = x.mesh
+        return ("ShardedTensor", mesh.axis_names, mesh.devices.shape,
+                tuple(mesh.devices.flat), x.spec, tuple(x.shape),
+                tuple(_walk(b, tensors, seen) for b in x.blocks.flat))
     if isinstance(x, (Ciphertext, Plaintext)):
         return (type(x).__name__, x.level, x.scale, x.is_ntt,
-                _walk(x.data, tensors))
+                _walk(x.data, tensors, seen))
+    if isinstance(x, SpCiphertext):
+        return ("SpCiphertext", x.level, x.scale, _walk(x.data, tensors, seen))
     if isinstance(x, (tuple, list)):
-        return (type(x).__name__, tuple(_walk(v, tensors) for v in x))
+        return (type(x).__name__, tuple(_walk(v, tensors, seen) for v in x))
     if x is None or isinstance(x, (bool, int, float, str)):
         return (type(x).__name__, x)
     raise TypeError(
-        "a staged call takes tensors, Ciphertexts, Plaintexts, tuples and "
-        f"lists of them and plain scalars, not {type(x).__name__}"
+        "a staged call takes tensors, ShardedTensors, Ciphertexts, "
+        "Plaintexts, SpCiphertexts, tuples and lists of them and plain "
+        f"scalars, not {type(x).__name__}"
     )
 
 
 def signature(args):
-    """``(key, tensor leaves)`` of a stage's positional arguments."""
+    """``(key, tensor leaves)`` of a stage's positional arguments: the
+    distinct tensors, a ``ShardedTensor``'s blocks in mesh order."""
     tensors: List[torch.Tensor] = []
-    return _walk(tuple(args), tensors), tensors
+    return _walk(tuple(args), tensors, {}), tensors
 
 
-def _rebuild(x, leaves):
-    """``x`` with its tensor leaves replaced, in order, by ``leaves``'s."""
+def _rebuild(x, leaves, done=None):
+    """``x`` with its distinct tensors replaced, in order, by ``leaves``'s
+    (a tensor that recurs in ``x`` takes the same replacement each time);
+    a ``ShardedTensor`` rebuilt on its mesh and spec."""
+    done = {} if done is None else done
     if isinstance(x, torch.Tensor):
-        return next(leaves)
-    if isinstance(x, (Ciphertext, Plaintext)):
-        return replace(x, data=_rebuild(x.data, leaves))
+        if id(x) not in done:
+            done[id(x)] = next(leaves)
+        return done[id(x)]
+    if isinstance(x, ShardedTensor):
+        blocks = np.empty(x.blocks.size, dtype=object)
+        for i, b in enumerate(x.blocks.flat):
+            blocks[i] = _rebuild(b, leaves, done)
+        return ShardedTensor(blocks.reshape(x.blocks.shape), x.mesh, x.spec)
+    if isinstance(x, (Ciphertext, Plaintext, SpCiphertext)):
+        return replace(x, data=_rebuild(x.data, leaves, done))
     if isinstance(x, (tuple, list)):
-        return type(x)(_rebuild(v, leaves) for v in x)
+        return type(x)(_rebuild(v, leaves, done) for v in x)
     return x
+
+
+def one_device(mesh: Mesh) -> bool:
+    """Do all blocks of ``mesh`` lie on one device (a card, virtual devices
+    of one card, or the CPU)?  Only then is a stage over it one graph."""
+    return len(mesh.unique_devices()) == 1
 
 
 def _held(fn):
@@ -112,6 +165,15 @@ def unstaged(fn):
     a stage of an owner that runs it eagerly and never captures."""
     get = _held(fn)
     return lambda *args: get()(*args)
+
+
+def stage(fn, name: str, guard: threading.Lock, mesh: Optional[Mesh] = None):
+    """``fn`` as a :class:`StagedCall`, unless it runs over ``mesh`` and the
+    mesh spans several devices: then :func:`unstaged`, decided here, when
+    the stage is built (one CUDA graph belongs to one device)."""
+    if mesh is not None and not one_device(mesh):
+        return unstaged(fn)
+    return StagedCall(fn, name, guard)
 
 
 def _abort_capture(graph, pool, device) -> None:
@@ -133,12 +195,24 @@ def _abort_capture(graph, pool, device) -> None:
     torch.cuda.synchronize(device)
 
 
+@contextlib.contextmanager
+def _collectives_into(stats: Optional[Dict[str, int]]):
+    """Within the block the collectives of ``parallel/mesh.py`` count into
+    ``stats`` (None: not at all), whatever counted before."""
+    saved, mesh_mod.counts = mesh_mod.counts, stats
+    try:
+        yield
+    finally:
+        mesh_mod.counts = saved
+
+
 @dataclass
 class _Entry:
     graph: "torch.cuda.CUDAGraph"
     inputs: List[torch.Tensor]   # static input buffers, in leaf order
     out: object                  # the output structure noted at capture
     outputs: List[torch.Tensor]  # its tensor leaves (the graph writes them)
+    collectives: Dict[str, int]  # what the capture counted (mesh.counts)
 
 
 class StagedCall:
@@ -197,6 +271,9 @@ class StagedCall:
             raise RuntimeError(f"stage {self.name}: CUDA graph replay failed: {e}") from e
         counts["replays"] += 1
         self.replays += 1
+        if mesh_mod.counts is not None:
+            for k, v in entry.collectives.items():
+                mesh_mod.counts[k] += v
         return _rebuild(entry.out, iter([t.clone() for t in entry.outputs]))
 
     def _capture(self, key, args, tensors, device) -> _Entry:
@@ -215,7 +292,7 @@ class StagedCall:
                 main = torch.cuda.current_stream(device)
                 side = torch.cuda.Stream(device)
                 side.wait_stream(main)
-                with torch.cuda.stream(side):
+                with torch.cuda.stream(side), _collectives_into(None):
                     self.fn(*static_args)
                 main.wait_stream(side)
                 torch.cuda.synchronize(device)
@@ -225,7 +302,8 @@ class StagedCall:
                 torch.cuda.empty_cache()
                 graph = torch.cuda.CUDAGraph()
                 pool = torch.cuda.graph_pool_handle()
-                with torch.cuda.stream(side):
+                collectives = mesh_mod.zero_counts()
+                with torch.cuda.stream(side), _collectives_into(collectives):
                     # "thread_local": the stage's own thread may make no
                     # call that a capture cannot hold (a host sync, a copy
                     # from pageable memory); other threads are not ours
@@ -244,8 +322,8 @@ class StagedCall:
         finally:
             self.guard.release()
         outputs: List[torch.Tensor] = []
-        _walk(result, outputs)
-        entry = _Entry(graph, inputs, result, outputs)
+        _walk(result, outputs, {})
+        entry = _Entry(graph, inputs, result, outputs, collectives)
         self._entries[key] = entry
         counts["captures"] += 1
         self.captures += 1

@@ -435,3 +435,153 @@ def test_bfv_limb_blocks_on_two_devices_equal_flat(card):
     np.testing.assert_array_equal(
         tbfv.BfvDecryptor(ctx, ks).decrypt(want) % ctx.t, vals[0] * vals[1] % ctx.t)
     torch.cuda.synchronize()
+
+
+def _same_sp(got, want):
+    """Two sp results equal integer for integer, block for block."""
+    assert (got.level, got.scale) == (want.level, want.scale)
+    assert got.data.spec == want.data.spec and got.data.mesh is want.data.mesh
+    for x, y in zip(got.data.blocks.flat, want.data.blocks.flat):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("k", [1, 2])
+@pytest.mark.parametrize("name,params", [
+    ("ckks_dot_product_latency", {"poly_modulus_degree": 4096, "n": 100, "sec_level": 0}),
+    ("bfv_eltwise_mult_latency", {}),  # registered: N = 8192
+])
+def test_sp_replayed_operate_equals_eager(card, monkeypatch, name, params, k):
+    """An sp benchmark on a mesh of one card (``k`` virtual devices): its
+    stage captured once and replayed; the first result equals the eager
+    stages' block for block and outlives the later calls; the collectives
+    credited to a replay equal an eager ``operate``'s; releasing the graphs
+    gives their memory back."""
+    from reference_seal_backend_tpu_torch.parallel import sp_eval
+    from reference_seal_backend_tpu_torch.utils import staging
+
+    monkeypatch.setenv("RSB_TORCH_VIRTUAL_DEVICES", "2")
+    bench, loaded = _staged_bench(name, dict(params, sp_shard=k), (1, 1))
+    assert bench.ev.mesh.unique_devices() == [card]
+    assert bench.run_notes(loaded)["stages"] == "staged"
+    staging.reset_counts()
+    first = bench.operate(loaded)
+    assert staging.counts == {"captures": 1, "replays": 1}
+    bench.operate(loaded)
+    credited = sp_eval.collective_stats(lambda: bench.block(bench.operate(loaded)))
+    last = bench.operate(loaded)
+    torch.cuda.synchronize()
+    assert staging.counts == {"captures": 1, "replays": 4}
+    with staging.eager(bench):
+        want = bench.operate(loaded)
+        stats = sp_eval.collective_stats(lambda: bench.block(bench.operate(loaded)))
+    assert credited == stats
+    assert (stats["all-to-all"] > 0) == (k > 1)
+    for got in (first, last):
+        _same_sp(got.payload, want.payload)
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved()
+    bench.release_graphs()
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_reserved() < held
+    _same_sp(first.payload, want.payload)
+
+
+def test_placed_chain_replays_equal_eager(card, monkeypatch):
+    """multiply -> relinearize -> rescale -> ``accumulate`` on a (dp=2,
+    limb=2) mesh of four virtual devices of the card, staged: the replay
+    equals the eager placed chain and the flat one, credits the eager
+    chain's collectives, and the NTT kernels counted in its trace equal
+    the eager chain's launches."""
+    import dataclasses
+    import threading
+
+    import numpy as np
+
+    from reference_seal_backend_tpu_torch.evaluator import composite
+    from reference_seal_backend_tpu_torch.evaluator.eval import Evaluator
+    from reference_seal_backend_tpu_torch.parallel import mesh as tmesh
+    from reference_seal_backend_tpu_torch.parallel import sp_eval
+    from reference_seal_backend_tpu_torch.schemes import ckks as tckks
+    from reference_seal_backend_tpu_torch.schemes import keys as tkeys
+    from reference_seal_backend_tpu_torch.schemes import params as tparams
+    from reference_seal_backend_tpu_torch.utils import profile_operate, staging
+    from reference_seal_backend_tpu_torch.utils.device import mesh_devices
+
+    monkeypatch.setenv("RSB_TORCH_VIRTUAL_DEVICES", "4")
+    n = 4096
+    ctx = tparams.make_ckks_context(n, mult_depth=2, sec_level=0, device=card)
+    steps = composite.rotations_for_accumulate(8, ctx.slots)
+    ks = tkeys.keygen(ctx, seed=5, galois_elts=[pow(5, s, 2 * n) for s in steps],
+                      need_relin=True)
+    enc, er = tckks.CkksEncoder(ctx), tckks.CkksEncryptor(ctx, ks, seed=5)
+    rng = np.random.default_rng(2)
+    a = er.encrypt_pt(enc.encode(rng.uniform(-1, 1, ctx.slots)))
+    a = dataclasses.replace(a, data=torch.stack([a.data, a.data.flip(-1)]))
+    ev = Evaluator(ctx, ks)
+
+    def chain(x):
+        return composite.accumulate(
+            ev, ev.rescale_to_next(ev.relinearize(ev.multiply(x, x))), 8)
+
+    mesh = tmesh.make_mesh(4, devices=mesh_devices(card, 4))
+    placed = tmesh.shard_ct(a, mesh, n_batch_axes=1, limb_axis="limb")
+    staged = staging.stage(chain, "chain", threading.Lock(), mesh)
+    assert isinstance(staged, staging.StagedCall)
+    flat = chain(a)
+    first = staged(placed)
+    torch.cuda.synchronize()
+    before = dict(ntt_cuda.launches)
+    eager = chain(placed)
+    torch.cuda.synchronize()
+    launched = sum(ntt_cuda.launches[k] - before[k] for k in before)
+    credited = sp_eval.collective_stats(lambda: staged(placed))
+    stats = sp_eval.collective_stats(lambda: chain(placed))
+    assert credited == stats and stats["all-reduce"] > 0
+    before = dict(ntt_cuda.launches)
+    traced = profile_operate.profile_run(lambda: (staged(placed), torch.cuda.synchronize()))
+    assert ntt_cuda.launches == before
+    assert traced["ntt_launches"] == launched > 0
+    assert staged.captures == 1 and staged.replays == 2 + len(traced["kernel_launches_each"])
+    for got in (first, staged(placed), eager):
+        assert torch.equal(got.data.gather(), flat.data)
+        assert (got.level, got.scale) == (flat.level, flat.scale)
+
+
+def test_mesh_over_card_and_cpu_runs_eagerly(card, monkeypatch):
+    """A mesh whose blocks lie on the card and on the CPU is never
+    captured: by ``staging.stage``'s branch, decided when the stage is
+    built, an sp benchmark over it has no ``StagedCall`` and says so in its
+    notes, and a placed chain over it is its function; both run eagerly,
+    no capture attempted, and the benchmark's result is right."""
+    import threading
+
+    import numpy as np
+
+    from reference_seal_backend_tpu_torch.engine import runner
+    from reference_seal_backend_tpu_torch.engine.registry import Engine
+    from reference_seal_backend_tpu_torch.models import base
+    from reference_seal_backend_tpu_torch.parallel import mesh as tmesh
+    from reference_seal_backend_tpu_torch.utils import staging
+
+    both = [card, torch.device("cpu")]
+    monkeypatch.setattr(base, "mesh_devices", lambda device, k: both)
+    engine = Engine("cuda")
+    desc = engine.find("ckks_eltwise_mult_latency")
+    bench = engine.create_benchmark(
+        desc, {"poly_modulus_degree": 2048, "n": 8, "sec_level": 0, "sp_shard": 2})
+    assert bench.ev.mesh.unique_devices() == both
+    assert bench._stages == []
+    assert not isinstance(bench._op_graph, staging.StagedCall)
+    assert bench.run_notes(None)["stages"] == "eager: the sp mesh spans 2 devices"
+    inputs, truth = runner.gen_inputs(desc, bench.params, np.random.default_rng(3), 1, 1)
+    staging.reset_counts()
+    out = bench.decode(bench.decrypt(bench.store(
+        bench.operate(bench.load(bench.encrypt(bench.encode(inputs)))))))
+    np.testing.assert_allclose(out[0], truth()[0], atol=5e-5, rtol=0)
+    mesh = tmesh.make_mesh(2, devices=both)
+    chain = staging.stage(lambda x: x, "identity", threading.Lock(), mesh)
+    assert not isinstance(chain, staging.StagedCall)
+    x = tmesh.ShardedTensor.distribute(torch.arange(8, device=card).reshape(2, 4),
+                                       mesh, ("limb", None))
+    assert chain(x) is x
+    assert staging.counts == {"captures": 0, "replays": 0}

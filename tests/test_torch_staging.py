@@ -3,10 +3,10 @@ graph_with_keys``), the port's counterpart of the JAX package's
 ``jit_with_keys``, on the CPU at N <= 2048: the cache key, every workload's
 stages at the JAX package's ``jit_with_keys`` sites, a staged call on the CPU
 equal to its function, the runner's ``after_timing`` on the benchmark it
-timed, ``sp_shard`` never capturing, the capture guard, and the card as
-``convert.py``'s default.  No JAX call: what ``operate`` computes is held against the JAX
-package by the other ``test_torch_*`` files, which run through the same
-stages.  The captures and replays themselves run on the card only
+timed, ``sp_shard`` staged at the same sites (never capturing on the CPU),
+the capture guard, and the card as ``convert.py``'s default.  No JAX call:
+what ``operate`` computes is held against the JAX package by the other
+``test_torch_*`` files, which run through the same stages.  The captures and replays themselves run on the card only
 (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 
 At most seven test items, so that xdist's ``--dist loadfile`` hands the
@@ -159,24 +159,35 @@ def test_after_timing_sees_the_benchmark_the_runner_timed(monkeypatch):
 
 
 def test_sp_shard_never_captures():
-    """Under ``sp_shard`` the stages run eagerly by an explicit branch: no
-    ``StagedCall`` exists, so nothing is ever captured.  Neither kind of
-    benchmark forms a reference cycle with its stages: the last reference
-    going frees it and its keys (and on the card its graphs)."""
+    """Under ``sp_shard`` on a one-device mesh (copies of the CPU) the
+    stages are ``StagedCall``s, as on the flat path; on the CPU a staged
+    call is its function, so nothing is ever captured, and the result is
+    unchanged: the cleartext's, and the eager stages' integer for integer.
+    Neither kind of benchmark forms a reference cycle with its stages: the
+    last reference going frees it and its keys (and on the card its
+    graphs)."""
     engine = Engine("cpu")
     desc = engine.find("ckks_eltwise_mult_latency")
     bench = engine.create_benchmark(desc, dict(SMALL, n=8, sp_shard=2))
-    assert bench._stages == []
-    assert not any(isinstance(v, staging.StagedCall) for v in vars(bench).values())
+    assert [s.name for s in bench._stages] == [
+        "ckks_eltwise_mult_latency._operate_impl"]
+    assert bench._op_graph is bench._stages[0]
     inputs, truth = runner.gen_inputs(desc, bench.params, np.random.default_rng(3), 1, 1)
     staging.reset_counts()
-    out = bench.decode(bench.decrypt(bench.store(
-        bench.operate(bench.load(bench.encrypt(bench.encode(inputs)))))))
+    loaded = bench.load(bench.encrypt(bench.encode(inputs)))
+    result = bench.operate(loaded)
+    out = bench.decode(bench.decrypt(bench.store(result)))
     np.testing.assert_allclose(out[0], truth()[0], atol=5e-5, rtol=0)
+    with staging.eager(bench):
+        want = bench.operate(loaded).payload
+    got = result.payload
+    assert (got.level, got.scale) == (want.level, want.scale)
+    assert all(torch.equal(a, b) for a, b in zip(got.data.blocks.flat, want.data.blocks.flat))
     assert staging.counts == {"captures": 0, "replays": 0}
     assert bench.run_notes(None)["graph_replays"] == 0
     flat = engine.create_benchmark(desc, dict(SMALL, n=8))
     refs = [weakref.ref(x) for x in (bench, bench.keys, flat, flat.keys)]
+    del loaded, result, got, want
     gc.disable()
     try:
         del bench, flat
