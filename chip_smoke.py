@@ -21,12 +21,15 @@ Phases (each prints one JSON line; any failure ends the run non-zero):
    generic kernels), lazy and non-lazy.
    ``path_views`` (run after ``capi_path``) both kernels against their
    plain versions once more, on every distinct view (plan, shape, strides,
-   alignment, first limb, epilogue) that the main path, ``limb_path`` and
-   ``capi_path`` (b) handed them: the views are noted while those paths
+   alignment, first limb, epilogue) that the main path, ``limb_path``,
+   ``bench_path`` and ``capi_path`` (b) handed them: the views are noted
+   while those paths
    run, not listed by hand (among them the BFV multiply's 10-limb views
    over q u Bsk at N = 8192, the limb blocks' windows from limb 3 at
    N = 8192 and limb 7 at N = 16384, the BFV limb blocks' from limb 2 and
-   their 8-limb plans over a q window u Bsk, and the harness's own sizes).
+   their 8-limb plans over a q window u Bsk, the limb windows and digit
+   lifts of logistic regression at N = 32768 with digit groups of 3, and the
+   harness's own sizes).
    ``kernel_times`` (run last) both kernels timed at
    ``[64, 7, 8192]``, at the one-wave shapes of a 1 x 1 dot product, with the
    logistic-regression context's plan at N = 16384 and with a 14-limb plan at
@@ -136,11 +139,27 @@ Phases (each prints one JSON line; any failure ends the run non-zero):
    and capture seconds, peak device memory; (a), (b), (d) and (e) must
    launch both kernels, (a), (b) and (d) at the top block's first limb
    too, and every transform must launch its kernel (no plain version).
-8. the ``kernels`` line (``launches``: the main-path run, counted where the
+8. ``bench_path`` (after ``limb_path``) the port's benchmark suite
+   (``reference_seal_backend_tpu_torch/bench.py``, the counterpart of the
+   JAX package's ``bench.py``) at ``bench.py``'s sizes, every step, each
+   throughput step timed for ``BENCH_WINDOW_S`` each way (staged and
+   eager): the bare multiply (N = 16384, a batch of 64), multiply +
+   relinearize + rescale, rotate and the sum of 8 rotations (a batch of 8),
+   the BFV BEHZ multiply (N = 8192), the CKKS dot product Latency and
+   element-wise multiply Offline 16 x 16 (N = 8192), logistic regression
+   Latency and Offline b100 at N = 16384 and at N = 32768 (depth 6, three
+   special primes, digit groups of 3).  Every gate must hold and nothing be
+   skipped, the headline and all ten metric keys present, every step's
+   staged result equal to its eager one integer for integer, the chains as
+   ``bench_suite.json`` ``describe`` records them (``BENCH_DESCRIBE``); at
+   N = 32768 a replay's K1 / K2 kernels, counted in padded traces, equal
+   to an eager ``operate``'s launches.  Prints the record.
+9. the ``kernels`` line (``launches``: the main-path run, counted where the
    wrapper launches: the eager warm-ups, the captures and the eager
    ``operate`` calls held against the replays; ``sp_path_launches``:
    the sp runs of ``sp_path``; ``limb_path_launches``: the placed chains of
-   ``limb_path``, eager, warmed up and captured; ``capi_path_launches``:
+   ``limb_path``, eager, warmed up and captured; ``bench_path_launches``:
+   every step of ``bench_path``, staged and eager; ``capi_path_launches``:
    the ``rsbtpu_*`` calls of ``capi_path`` (b); each counted from 0), the
    card's name and power limit, and the result line.
 """
@@ -223,6 +242,24 @@ LIMB_DOT_ATOL = 5e-5
 LIMB_TIMED = 3
 # (e): the logistic-regression ciphertext's level that limb = 2 does not divide
 LIMB_ODD_LEVEL = 13
+# bench_path: the port's suite (reference_seal_backend_tpu_torch/bench.py) at
+# bench.py's sizes, BENCH_WINDOW_S seconds of timed chunks a throughput step
+# each way; the chains bench_suite.json ``describe`` records (the JAX
+# package's record), held against the port's own describe()
+BENCH_WINDOW_S = 1.0
+BENCH_DESCRIBE = {
+    16384: {"poly_modulus_degree": "16384",
+            "coeff_modulus_chain_bits": "30|30|25|25|25|25|26|26|25|26|26|25|25|26",
+            "special_modulus_bits": "60", "key_switch_digit_group": "2",
+            "security": "128 bits"},
+    32768: {"poly_modulus_degree": "32768",
+            "coeff_modulus_chain_bits": "30|30|25|25|25|25|26|26|25|26|26|25|26|26",
+            "special_modulus_bits": "90", "key_switch_digit_group": "3",
+            "security": "128 bits"},
+}
+BENCH_LOGREG_32768 = ("ckks_logreg_n32768_latency_ms",
+                      "ckks_logreg_offline_b100_samples_per_sec_n32768")
+BENCH_LOGREG_ATOL = 5e-4  # bench.py's gate after key switches
 # NTT launches of one BEHZ multiply: both operands' inverse transforms, the
 # tensor product's forward and inverse over q u Bsk, the output's forward
 BEHZ_SWEEPS = 4
@@ -558,38 +595,6 @@ def phase_kernel_times(device):
     return rows[0]
 
 
-def same_result(a, b) -> bool:
-    """Two ``operate`` results equal integer for integer: the same structure,
-    the same ``level`` / ``scale`` / ``is_ntt``, equal tensors; sharded
-    data on the same mesh and spec, equal block for block."""
-    from reference_seal_backend_tpu_torch.models.base import Handle
-    from reference_seal_backend_tpu_torch.parallel.mesh import ShardedTensor
-    from reference_seal_backend_tpu_torch.parallel.sp_eval import SpCiphertext
-    from reference_seal_backend_tpu_torch.schemes.core import Ciphertext, Plaintext
-
-    if isinstance(a, Handle):
-        return isinstance(b, Handle) and (a.tag, a.meta) == (b.tag, b.meta) \
-            and same_result(a.payload, b.payload)
-    if isinstance(a, torch.Tensor):
-        return isinstance(b, torch.Tensor) and a.dtype == b.dtype \
-            and a.shape == b.shape and torch.equal(a, b)
-    if isinstance(a, ShardedTensor):
-        return isinstance(b, ShardedTensor) and a.mesh is b.mesh \
-            and a.spec == b.spec and \
-            all(same_result(x, y) for x, y in zip(a.blocks.flat, b.blocks.flat))
-    if isinstance(a, SpCiphertext):
-        return isinstance(b, SpCiphertext) and (a.level, a.scale) == (b.level, b.scale) \
-            and same_result(a.data, b.data)
-    if isinstance(a, (Ciphertext, Plaintext)):
-        return type(a) is type(b) and \
-            (a.level, a.scale, a.is_ntt) == (b.level, b.scale, b.is_ntt) \
-            and same_result(a.data, b.data)
-    if isinstance(a, (tuple, list)):
-        return type(a) is type(b) and len(a) == len(b) and \
-            all(same_result(x, y) for x, y in zip(a, b))
-    return a == b
-
-
 def compare_with_eager(bench, loaded, result):
     """``main_path``'s ``after_timing``: on the benchmark the runner just
     timed, ``operate`` replayed and with its stages eager
@@ -601,6 +606,7 @@ def compare_with_eager(bench, loaded, result):
     ``operate`` launched (``EXPECTED_LAUNCHES`` where given; none under
     ``sp_shard``).  Sharded results are compared block for block."""
     from reference_seal_backend_tpu_torch.utils import profile_operate
+    from reference_seal_backend_tpu_torch.utils.staging import same_result
 
     t0 = time.perf_counter()
     name = bench.descriptor.name
@@ -890,7 +896,7 @@ def sp_staged_vs_eager(bench, loaded, result, replays, name, k):
              f"{replays}, not every stage each")
     eager, cmp = profile_operate.replayed_and_eager(
         bench, loaded, rounds=SP_TIMED, traced=("replayed",))
-    if not same_result(result, eager):
+    if not staging.same_result(result, eager):
         fail(f"sp_path: {name} at sp = {k}: the replayed result differs from "
              f"the eager stages'")
     rep = cmp["replayed"]
@@ -1332,6 +1338,110 @@ def phase_limb_path(device):
     return launches, views
 
 
+def bench_inspect(key, bench, loaded, result):
+    """``bench_path``'s ``after_step``: for logistic regression at N = 32768,
+    on the benchmark the suite just timed, one eager ``operate`` (its NTT
+    launches counted by the wrapper) and a replay traced in padded traces
+    (``profile_operate.profile_run``): fails unless the replay launches
+    nothing from Python and its traced K1 / K2 kernels equal the eager
+    launches.  Returns busy time, idle share and kernels of the replay."""
+    from reference_seal_backend_tpu_torch.ops.cuda import ntt as ntt_cuda
+    from reference_seal_backend_tpu_torch.utils import profile_operate, staging
+
+    if key not in BENCH_LOGREG_32768:
+        return None
+    before = dict(ntt_cuda.launches)
+    with staging.eager(bench):
+        bench.block(bench.operate(loaded))
+    eager = {k: ntt_cuda.launches[k] - before[k] for k in before}
+    before = dict(ntt_cuda.launches)
+    traced = profile_operate.profile_run(lambda: bench.block(bench.operate(loaded)))
+    if ntt_cuda.launches != before or traced["ntt_launches"] != sum(eager.values()) \
+            or not all(eager.values()):
+        fail(f"bench_path: {key}: NTT kernels of a replay "
+             f"{traced['ntt_launches_each']} (traces; pads seen "
+             f"{traced['pads_seen_each']}), launched by an eager operate {eager}, "
+             f"by the replays {ntt_cuda.launches}, before {before}")
+    return {"ntt_kernels_per_replay": traced["ntt_launches"],
+            "eager_ntt_launches": eager,
+            "replay_kernels": traced["kernel_launches"],
+            "replay_device_busy_ms": traced["device_busy_ms"],
+            "replay_idle_share": traced["idle_share"],
+            "replay_profiled_ms": traced["profiled_operate_ms"],
+            "replay_ntt_ms": traced["ntt_ms"],
+            "replay_top_kernels": traced["top_kernels"][:3]}
+
+
+def phase_bench_path(device):
+    """``bench_path``: the port's benchmark suite
+    (``reference_seal_backend_tpu_torch/bench.py``, the counterpart of the
+    JAX package's ``bench.py``) at ``bench.py``'s sizes, every step, with
+    ``BENCH_WINDOW_S`` of timed chunks a throughput step each way.  Fails
+    unless every gate holds (the suite raises), nothing is skipped, the
+    headline and all ten metric keys are present, every step's staged
+    result equals its eager one integer for integer, the record names the
+    card, and the logistic-regression chains are ``BENCH_DESCRIBE``'s (at
+    N = 32768: digit groups of 3, 90 special bits); for logistic
+    regression at N = 32768, Latency and Offline b100, decoded within
+    ``BENCH_LOGREG_ATOL`` of the cleartext sigmoid, :func:`bench_inspect`.
+    The NTT launch counts are set to 0 just before the suite and read just
+    after; ``ops/ntt.py:call_log`` notes every view it hands the kernels.
+    Returns the launches and the views."""
+    from reference_seal_backend_tpu_torch import bench as bench_mod
+    from reference_seal_backend_tpu_torch.ops import ntt as ntt_mod
+    from reference_seal_backend_tpu_torch.ops.cuda import ntt as ntt_cuda
+    from reference_seal_backend_tpu_torch.utils import staging
+
+    t0 = time.perf_counter()
+    run = bench_mod.Run(device, window_s=BENCH_WINDOW_S, emit=lambda line: None,
+                        after_step=bench_inspect)
+    torch.cuda.synchronize()
+    ntt_mod.call_log = {}
+    ntt_cuda.reset_launches()
+    staging.reset_counts()
+    try:
+        rc = bench_mod.run_suite(run)
+    except SystemExit as e:
+        fail(f"bench_path: {e}")
+    finally:
+        torch.cuda.synchronize()
+        views, ntt_mod.call_log = ntt_mod.call_log, None
+    launches = dict(ntt_cuda.launches)
+    graphs = dict(staging.counts)
+    record = run.record
+    if rc != 0 or record["skipped"]:
+        fail(f"bench_path: exit code {rc}, skipped {record['skipped']}")
+    values = [record["value"], *record["extras"].values()]
+    if set(record["extras"]) != bench_mod.CURRENT_METRIC_KEYS or \
+            not all(isinstance(v, float) and math.isfinite(v) and v > 0 for v in values):
+        fail(f"bench_path: headline {record['value']}, extras {record['extras']}")
+    dev = record["device"]
+    if dev["platform"] != "gpu" or not dev["name"] or not dev["power_limit"] \
+            or dev["count"] < 1:
+        fail(f"bench_path: the record's device {dev}")
+    steps = record["steps"]
+    if set(steps) != bench_mod.CURRENT_METRIC_KEYS | {bench_mod.HEADLINE} or \
+            not all(s["equal_to_eager"] for s in steps.values()):
+        fail(f"bench_path: steps {sorted(steps)} not each equal to its eager run")
+    for key, got in record["describe"].items():
+        if got != BENCH_DESCRIBE[int(got["poly_modulus_degree"])]:
+            fail(f"bench_path: {key}: chain {got}")
+    if len(record["describe"]) != 4:
+        fail(f"bench_path: describe {sorted(record['describe'])}")
+    for key in BENCH_LOGREG_32768:
+        step = steps[key]
+        if not step["max_abs_err"] <= BENCH_LOGREG_ATOL or not step["inspected"] \
+                or step["graph_captures"] < 1:
+            fail(f"bench_path: {key}: {step}")
+    for name, count in launches.items():
+        if count <= 0:
+            fail(f"bench_path never launched {name}")
+    emit({"phase": "bench_path", "bench": record, "launches": launches,
+          "graphs": graphs, "views_noted": len(views),
+          "seconds": time.perf_counter() - t0})
+    return launches, views
+
+
 def harness_sizes():
     """The sizes of ``native_harness.cpp``'s ``make_workload``, read from its
     source: the security rule, Offline sample counts, matrix dimensions,
@@ -1717,9 +1827,11 @@ def main() -> int:
     launches, views, main_benchmarks = phase_main_path(device)
     sp_launches, sp_worst = phase_sp_path(device)
     limb_launches, limb_views = phase_limb_path(device)
+    bench_launches, bench_views = phase_bench_path(device)
     capi_launches, capi_views = phase_capi_path(built, device, main_benchmarks)
     on_path = phase_path_views({"main_path": views, "capi_path": capi_views,
-                                "limb_path": limb_views}, device)
+                                "limb_path": limb_views,
+                                "bench_path": bench_views}, device)
     worst = {k: max(worst[k], on_path[k], sp_worst[k]) for k in worst}
     timed = phase_kernel_times(device)
 
@@ -1736,6 +1848,7 @@ def main() -> int:
             "launches": launches[name],
             "sp_path_launches": sp_launches[name],
             "limb_path_launches": limb_launches[name],
+            "bench_path_launches": bench_launches[name],
             "capi_path_launches": capi_launches[name],
             "max_abs_err": worst[name],
             "ms": timed[name]["ms"],

@@ -14,7 +14,8 @@ run eagerly (``staging.eager``), on the same loaded operands:
   captured and replay once;
 * ``operate_ms``: host clock around ``operate`` ending in a synchronise,
   median of ``ROUNDS`` calls, the two ways taken in turns;
-* ``event_ms``: CUDA events around one ``operate``, its span on the device;
+* ``event_ms``: CUDA events around one ``operate``, its span on the device
+  (the host clock on a machine without a card);
 * ``device_busy_ms`` / ``idle_share``: sum of CUDA kernel time in one
   profiled ``operate`` (``torch.profiler``) against its wall time;
 * ``kernel_launches`` and the ten kernels with the most device time;
@@ -139,12 +140,21 @@ def profile_run(run, traces: int = TRACES) -> dict:
     return row
 
 
-def _event_ms(run) -> float:
+def event_ms(run, calls: int = 1) -> float:
+    """Milliseconds of ``calls`` calls of ``run``: CUDA events where a card
+    is present, the host clock on a machine without one (every call is
+    synchronous there)."""
+    if not torch.cuda.is_available():
+        t = time.perf_counter()
+        for _ in range(calls):
+            run()
+        return (time.perf_counter() - t) * 1e3
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
-    run()
+    for _ in range(calls):
+        run()
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop)
@@ -185,7 +195,7 @@ def replayed_and_eager(bench, loaded, rounds: int = ROUNDS,
             "operate_ms": statistics.median(ms[how]),
             "operate_ms_each": ms[how],
             "ntt_launches_per_operate": sorted(launched[how]),
-            "event_ms": _event_ms(run),
+            "event_ms": event_ms(run),
             **(profile_run(run) if how in traced else {}),
         }
     row["replayed_over_eager"] = (

@@ -346,3 +346,33 @@ def eager(owner):
     finally:
         for k, v in stages.items():
             setattr(owner, k, v)
+
+
+def same_result(a, b) -> bool:
+    """Two results (of ``operate``, of a stage) equal integer for integer:
+    the same structure, the same ``level`` / ``scale`` / ``is_ntt``, equal
+    tensors; sharded data on the same mesh and spec, equal block for block.
+    The check a staged result is held to against its eager run."""
+    from reference_seal_backend_tpu_torch.models.base import Handle
+
+    if isinstance(a, Handle):
+        return isinstance(b, Handle) and (a.tag, a.meta) == (b.tag, b.meta) \
+            and same_result(a.payload, b.payload)
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and a.dtype == b.dtype \
+            and a.shape == b.shape and torch.equal(a, b)
+    if isinstance(a, ShardedTensor):
+        return isinstance(b, ShardedTensor) and a.mesh is b.mesh \
+            and a.spec == b.spec and \
+            all(same_result(x, y) for x, y in zip(a.blocks.flat, b.blocks.flat))
+    if isinstance(a, SpCiphertext):
+        return isinstance(b, SpCiphertext) and (a.level, a.scale) == (b.level, b.scale) \
+            and same_result(a.data, b.data)
+    if isinstance(a, (Ciphertext, Plaintext)):
+        return type(a) is type(b) and \
+            (a.level, a.scale, a.is_ntt) == (b.level, b.scale, b.is_ntt) \
+            and same_result(a.data, b.data)
+    if isinstance(a, (tuple, list)):
+        return type(a) is type(b) and len(a) == len(b) and \
+            all(same_result(x, y) for x, y in zip(a, b))
+    return a == b

@@ -585,3 +585,37 @@ def test_mesh_over_card_and_cpu_runs_eagerly(card, monkeypatch):
                                        mesh, ("limb", None))
     assert chain(x) is x
     assert staging.counts == {"captures": 0, "replays": 0}
+
+
+def test_bench_suite_gates_on_the_card(card):
+    """The port's benchmark suite at ``bench.py``'s sizes: every gate holds,
+    nothing is skipped, the headline and all ten metric keys, every staged
+    step equal to its eager run, and logistic regression at N = 32768 on
+    digit groups of 3 over three special primes."""
+    import json
+
+    from reference_seal_backend_tpu_torch import bench
+
+    lines = []
+    run = bench.Run("cuda", window_s=0.5, emit=lines.append)
+    assert bench.run_suite(run) == 0
+    record = json.loads(lines[-1])
+    assert record["skipped"] == [] and record["value"] > 0
+    assert set(record["extras"]) == bench.CURRENT_METRIC_KEYS
+    assert all(s["equal_to_eager"] for s in record["steps"].values())
+    assert record["device"]["platform"] == "gpu" and record["device"]["power_limit"]
+    chain = record["describe"]["ckks_logreg_n32768_latency_ms"]
+    assert (chain["key_switch_digit_group"], chain["special_modulus_bits"]) == ("3", "90")
+    step = record["steps"]["ckks_logreg_offline_b100_samples_per_sec_n32768"]
+    assert (step["dots_chunk"], step["dots_n_chunks"]) == (20, 5)
+
+
+def test_logreg_n32768_through_the_runner(card, capsys):
+    from reference_seal_backend_tpu_torch.engine import runner
+
+    rc = runner.main([
+        "--device", "cuda", "--poly_modulus_degree", "32768", "--benchmarks",
+        "ckks_logistic_regression_poly_d3_latency",
+        "ckks_logistic_regression_poly_d3_offline"])
+    out = capsys.readouterr().out
+    assert rc == 0 and "[ Info    ] Failed: 0" in out, out

@@ -13,6 +13,8 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "reference_seal_backend_tpu_torch"
 SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# the port's benchmark suite, beside the JAX package's bench.py
+BENCH = PKG / "bench.py"
 FORBIDDEN = ("jax", "jaxlib", "reference_seal_backend_tpu")
 
 
@@ -28,6 +30,7 @@ def _imported_modules(path):
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_imports_no_jax_and_no_jax_package(path):
+    assert BENCH in SOURCES
     for mod in _imported_modules(path):
         top = mod.split(".")[0]
         assert top not in FORBIDDEN, f"{path}: imports {mod}"
@@ -51,6 +54,7 @@ import importlib, pkgutil, sys
 import reference_seal_backend_tpu_torch as pkg
 for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
+assert "reference_seal_backend_tpu_torch.bench" in sys.modules
 from reference_seal_backend_tpu_torch.engine.runner import run_all
 res = run_all(["ckks_eltwise_add_latency"], device="cpu", verbose=False,
               params={"poly_modulus_degree": 2048, "sec_level": 0})

@@ -83,6 +83,30 @@ def test_signature_is_what_jit_keys_a_call_on():
         staging.signature((object(),))
 
 
+def test_same_result_is_equal_integers_and_static_fields():
+    """A staged result is held to its eager run by ``same_result``: equal
+    tensors of one dtype and shape, and the same level, scale and
+    ``is_ntt``, through tuples and lists."""
+    x = torch.arange(48, dtype=torch.int32).reshape(2, 3, 8)
+    ct = Ciphertext(x, level=3, scale=2.0 ** 40)
+    assert staging.same_result((ct, [Plaintext(x[0], level=3)], 5),
+                               (replace(ct, data=x.clone()),
+                                [Plaintext(x[0].clone(), level=3)], 5))
+    y = x.clone()
+    y[1, 2, 7] += 1
+    differ = [
+        replace(ct, data=y),
+        replace(ct, data=x.to(torch.int64)),
+        replace(ct, level=2),
+        replace(ct, scale=2.0 ** 41),
+        replace(ct, is_ntt=False),
+        Plaintext(x, level=3, scale=2.0 ** 40),
+        (ct,),
+    ]
+    assert not any(staging.same_result(ct, d) for d in differ)
+    assert not staging.same_result([ct], [ct, ct])
+
+
 def test_every_workload_operates_through_its_stages(built, monkeypatch):
     """``operate`` goes through ``StagedCall``s at the JAX package's
     ``jit_with_keys`` sites: one stage for element-wise, dot product and the
