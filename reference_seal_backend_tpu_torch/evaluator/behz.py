@@ -42,6 +42,7 @@ gives the same integers.  The flat multiply is the window ``(0, k)``.
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -50,6 +51,7 @@ from reference_seal_backend_tpu_torch.ops import modops
 from reference_seal_backend_tpu_torch.ops import ntt as ntt_mod
 from reference_seal_backend_tpu_torch.schemes.core import Ciphertext
 from reference_seal_backend_tpu_torch.schemes.params import BfvContext
+from reference_seal_backend_tpu_torch.utils import counters
 
 _MASK16 = 0xFFFF
 _MTILDE = 1 << 16
@@ -401,11 +403,27 @@ def bfv_multiply(ctx: BfvContext, a: Ciphertext, b: Ciphertext) -> Ciphertext:
     tb = tables_for(ctx)
     if a.size != 2 or b.size != 2:
         raise NotImplementedError("bfv multiply expects size-2 inputs")
-    # [2ab, ..., 2, k, N] NTT Montgomery -> normal coefficients
-    ab_q = to_coeff(ctx, tb, operands(a.data, b.data))
-    ab_bsk = _conv_to_bsk_mtilde(tb, ab_q)  # [2ab, ..., 2, kb, N]
-    prod_q, prod_bsk = tensor_product(tb, ab_q, ab_bsk)
-    # scale by t, floor-divide by q (in Bsk), convert exactly back to q
-    y_bsk = floor_bsk(tb, prod_bsk, _fbc_q_to_bsk(tb, prod_q, tb.t_qhinv))
-    out_ntt = to_ntt(ctx, tb, _sk_to_q(tb, y_bsk))
+    # each step counted at its shape (utils/counters.py): P products over
+    # k q limbs and kb Bsk primes; D distinct operand polynomials (as
+    # stored, before they broadcast) and 3P product polynomials
+    shape = torch.broadcast_shapes(a.data.shape, b.data.shape)
+    P, k, n = math.prod(shape[:-3]), shape[-2], shape[-1]
+    D = 2 * (math.prod(a.data.shape[:-3]) + math.prod(b.data.shape[:-3]))
+    kb = len(ctx.bsk_primes)
+    wide, store = modops.WIDE.itemsize, a.data.element_size()
+    with counters.step("bfv_multiply", P, k, k, n, store):
+        # [2ab, ..., 2, k, N] NTT Montgomery -> normal coefficients
+        with counters.step("behz.to_coeff", D, k, k, n, wide):
+            ab_q = to_coeff(ctx, tb, operands(a.data, b.data))
+        with counters.step("behz.conv_q_bsk_mtilde", D, k, kb, n, wide):
+            ab_bsk = _conv_to_bsk_mtilde(tb, ab_q)  # [2ab, ..., 2, kb, N]
+        with counters.step("behz.tensor_product", P, k + kb, k + kb, n, wide, D):
+            prod_q, prod_bsk = tensor_product(tb, ab_q, ab_bsk)
+        # scale by t, floor-divide by q (in Bsk), convert exactly back to q
+        with counters.step("behz.floor_q_bsk", 3 * P, k, kb, n, wide):
+            y_bsk = floor_bsk(tb, prod_bsk, _fbc_q_to_bsk(tb, prod_q, tb.t_qhinv))
+        with counters.step("behz.sk_bsk_q", 3 * P, kb, k, n, wide):
+            out_q = _sk_to_q(tb, y_bsk)
+        with counters.step("behz.to_ntt", 3 * P, k, k, n, store):
+            out_ntt = to_ntt(ctx, tb, out_q)
     return Ciphertext(data=out_ntt, level=ctx.L, scale=1.0, is_ntt=True)

@@ -27,6 +27,7 @@ is shared by both schemes (BFV never rescales).
 
 from __future__ import annotations
 
+import math
 from dataclasses import replace
 from typing import Optional, Sequence, Tuple
 
@@ -39,6 +40,7 @@ from reference_seal_backend_tpu_torch.parallel.mesh import ShardedTensor
 from reference_seal_backend_tpu_torch.schemes.core import Ciphertext, Plaintext
 from reference_seal_backend_tpu_torch.schemes.keys import KeySet, SwitchKey
 from reference_seal_backend_tpu_torch.schemes.params import Context
+from reference_seal_backend_tpu_torch.utils import counters
 
 _SCALE_RTOL = 1e-9
 
@@ -499,12 +501,14 @@ class Evaluator:
             raise NotImplementedError("relinearize expects size <= 3")
         if self.keys is None or self.keys.relin is None:
             raise ValueError("no relinearization key")
-        l = a.level
-        p = self.ctx.p[:l]
-        kb, ka = self.key_switch(a.data[..., 2, :, :], self.keys.relin, l)
-        c0 = modops.mod_add(a.data[..., 0, :, :], kb, p)
-        c1 = modops.mod_add(a.data[..., 1, :, :], ka, p)
-        return replace(a, data=torch.stack([c0, c1], dim=-3))
+        l, ctx = a.level, self.ctx
+        p = ctx.p[:l]
+        with counters.step("relinearize", math.prod(a.data.shape[:-3]), l, l, ctx.n,
+                           modops.STORE.itemsize, ctx.n_special, ctx.dig_count(l)):
+            kb, ka = self.key_switch(a.data[..., 2, :, :], self.keys.relin, l)
+            c0 = modops.mod_add(a.data[..., 0, :, :], kb, p)
+            c1 = modops.mod_add(a.data[..., 1, :, :], ka, p)
+            return replace(a, data=torch.stack([c0, c1], dim=-3))
 
     # -- level / scale management ------------------------------------------
 

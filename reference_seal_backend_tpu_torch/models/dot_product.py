@@ -17,6 +17,7 @@ import numpy as np
 from reference_seal_backend_tpu_torch.engine.descriptor import BenchmarkDescriptor
 from reference_seal_backend_tpu_torch.evaluator import composite
 from reference_seal_backend_tpu_torch.models.base import Handle, HEBenchmark
+from reference_seal_backend_tpu_torch.utils import counters
 
 
 class DotProductBenchmark(HEBenchmark):
@@ -63,6 +64,7 @@ class DotProductBenchmark(HEBenchmark):
 
     def operate(self, loaded: Handle) -> Handle:
         self.check_handle(loaded, "ct")
+        counters.note("operate")
         a, b = loaded.payload
         out = self._op_graph(a, b)
         return Handle(

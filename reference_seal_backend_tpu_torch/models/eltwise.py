@@ -22,6 +22,7 @@ from reference_seal_backend_tpu_torch.engine.descriptor import (
     Workload,
 )
 from reference_seal_backend_tpu_torch.models.base import Handle, HEBenchmark
+from reference_seal_backend_tpu_torch.utils import counters
 
 
 class ElementWiseBenchmark(HEBenchmark):
@@ -61,6 +62,7 @@ class ElementWiseBenchmark(HEBenchmark):
 
     def operate(self, loaded: Handle) -> Handle:
         self.check_handle(loaded, "ct")
+        counters.note("operate")
         a, b = loaded.payload
         out = self._op_graph(a, b)
         return Handle(

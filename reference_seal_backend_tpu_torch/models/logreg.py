@@ -27,6 +27,7 @@ import torch
 from reference_seal_backend_tpu_torch.engine.descriptor import BenchmarkDescriptor
 from reference_seal_backend_tpu_torch.evaluator import composite
 from reference_seal_backend_tpu_torch.models.base import Handle, HEBenchmark
+from reference_seal_backend_tpu_torch.utils import counters
 
 SIGMOID_D3 = (0.5, 0.15012, 0.0, -0.0015930078125)
 # The batch behind the FLEXIBLE (0) registration of the Offline descriptor.
@@ -131,6 +132,7 @@ class LogRegBenchmark(HEBenchmark):
 
     def operate(self, loaded: Handle) -> Handle:
         self.check_handle(loaded, "ct")
+        counters.note("operate")
         w, b, x = loaded.payload
         batch = x.data.shape[0]
         chunk, n_chunks = self.dots_chunks(batch)

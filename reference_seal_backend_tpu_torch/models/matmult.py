@@ -37,6 +37,7 @@ from reference_seal_backend_tpu_torch.engine.descriptor import BenchmarkDescript
 from reference_seal_backend_tpu_torch.evaluator import composite
 from reference_seal_backend_tpu_torch.evaluator.eval import _mod_sum
 from reference_seal_backend_tpu_torch.models.base import Handle, HEBenchmark
+from reference_seal_backend_tpu_torch.utils import counters
 
 
 class _MatMultBase(HEBenchmark):
@@ -57,6 +58,7 @@ class _MatMultBase(HEBenchmark):
 
     def operate(self, loaded: Handle) -> Handle:
         self.check_handle(loaded, "ct")
+        counters.note("operate")
         m0, m1 = loaded.payload
         out = self._op_graph(m0, m1)
         return self.handle("result", out, meta=loaded.meta)

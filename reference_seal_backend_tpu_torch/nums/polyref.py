@@ -7,6 +7,8 @@ and automorphisms.  int64 is safe for products of residues < 2**31.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 
 
@@ -82,8 +84,7 @@ def host_intt(x: np.ndarray, psi: int, p: int) -> np.ndarray:
     n = x.shape[-1]
     lead = x.shape[:-1]
     x = x.astype(np.int64).copy()
-    roots = _root_table(psi, p, n)
-    inv_roots = np.array([pow(int(r), -1, p) for r in roots], dtype=np.int64)
+    inv_roots = _inv_root_table(psi, p, n)
     m = n // 2
     t = 1
     while m >= 1:
@@ -107,9 +108,24 @@ def _bitrev(i: int, bits: int) -> int:
     return out
 
 
+@functools.lru_cache(maxsize=None)
 def _root_table(psi: int, p: int, n: int) -> np.ndarray:
-    """roots[i] = psi^bitrev(i) over log2(n) bits (the CT twiddle table)."""
+    """roots[i] = psi^bitrev(i) over log2(n) bits (the CT twiddle table).
+    Built once per (psi, p, n) and shared, so read-only: a BFV encode or
+    decode transforms one polynomial mod t, and the table's n modular
+    powers cost more than the transform."""
     bits = n.bit_length() - 1
-    return np.array(
+    roots = np.array(
         [pow(psi, _bitrev(i, bits), p) for i in range(n)], dtype=np.uint32
     )
+    roots.setflags(write=False)
+    return roots
+
+
+@functools.lru_cache(maxsize=None)
+def _inv_root_table(psi: int, p: int, n: int) -> np.ndarray:
+    """The inverses of :func:`_root_table`'s roots, int64, read-only."""
+    inv = np.array([pow(int(r), -1, p) for r in _root_table(psi, p, n)],
+                   dtype=np.int64)
+    inv.setflags(write=False)
+    return inv

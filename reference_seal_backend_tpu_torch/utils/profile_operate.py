@@ -29,7 +29,10 @@ run eagerly (``staging.eager``), on the same loaded operands:
   a trace is whole, ``TRACES`` times at most, and reported from that trace
   (``*_each`` lists every trace's counts and surviving pads);
 * ``ntt_launches_per_operate``: the launch counters' moves per ``operate``
-  (``ops/cuda/ntt.py``; 0 for a replay).
+  (``ops/cuda/ntt.py``; 0 for a replay);
+* ``spans``: host milliseconds and count of each counted step's span
+  (``utils/counters.py``) in the trace: the steps of an eager call, none
+  in a replay's.
 
 Needs one CUDA card; fails without one.
 """
@@ -49,7 +52,7 @@ from reference_seal_backend_tpu_torch.engine.descriptor import Category, Workloa
 from reference_seal_backend_tpu_torch.engine.registry import Engine
 from reference_seal_backend_tpu_torch.models.logreg import DEFAULT_BATCH
 from reference_seal_backend_tpu_torch.ops.cuda import ntt as ntt_cuda
-from reference_seal_backend_tpu_torch.utils import staging
+from reference_seal_backend_tpu_torch.utils import counters, staging
 from reference_seal_backend_tpu_torch.utils.device import card_name_and_power_limit
 
 DEFAULT = ("ckks_dot_product_latency", "ckks_dot_product_offline")
@@ -98,6 +101,12 @@ def _trace(run) -> dict:
     evs = sorted((e for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA),
                  key=lambda e: e.time_range.start)
+    spans = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA and \
+                e.name.startswith(counters.SPAN_PREFIX):
+            ms, count = spans.get(e.name, (0.0, 0))
+            spans[e.name] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
     is_pad = [PAD in e.name for e in evs]
     lead = is_pad.index(False) if False in is_pad else len(evs)
     tail = is_pad[::-1].index(False) if False in is_pad else len(evs)
@@ -123,6 +132,7 @@ def _trace(run) -> dict:
         "top_kernels": [
             {"name": k[0][:80], "ms": k[1], "count": k[2]} for k in kernels[:10]
         ],
+        "spans": {k: {"host_ms": ms, "count": n} for k, (ms, n) in spans.items()},
     }
 
 

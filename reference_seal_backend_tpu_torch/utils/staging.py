@@ -54,7 +54,9 @@ path are counted otherwise: each graph keeps those its capture ran
 (``parallel/mesh.py:counts``, ``a2a_bytes`` included), and while
 ``sp_eval.collective_stats`` counts, every call credits them once, the
 first (warm-up, capture, replay) as a replay, since the graph holds exactly
-those copies.  :data:`counts` counts the captures and the replays
+those copies.  The steps of ``utils/counters.py`` are credited the same
+way: each graph keeps those its capture noted, the warm-up notes none, and
+every call credits them once.  :data:`counts` counts the captures and the replays
 themselves, and :func:`eager` runs an owner's stages as plain functions:
 the reference a staged run is held against.
 """
@@ -66,6 +68,7 @@ import inspect
 import threading
 import time
 import weakref
+from collections import Counter
 from dataclasses import dataclass, replace
 from typing import Dict, List, Optional
 
@@ -76,6 +79,7 @@ from reference_seal_backend_tpu_torch.parallel import mesh as mesh_mod
 from reference_seal_backend_tpu_torch.parallel.mesh import Mesh, ShardedTensor
 from reference_seal_backend_tpu_torch.parallel.sp_eval import SpCiphertext
 from reference_seal_backend_tpu_torch.schemes.core import Ciphertext, Plaintext
+from reference_seal_backend_tpu_torch.utils import counters
 
 #: graphs captured and replayed since the last :func:`reset_counts`
 counts: Dict[str, int] = {"captures": 0, "replays": 0}
@@ -206,6 +210,15 @@ def _collectives_into(stats: Optional[Dict[str, int]]):
         mesh_mod.counts = saved
 
 
+def _run_noting(fn, args, collectives: Optional[Dict[str, int]],
+                steps: Optional[Counter]):
+    """``fn(*args)``, its collectives counted into ``collectives`` and its
+    steps (``utils/counters.py``) into ``steps``; None counts nothing (a
+    warm-up).  What a capture runs: the graph then holds exactly those."""
+    with _collectives_into(collectives), counters.into(steps):
+        return fn(*args)
+
+
 @dataclass
 class _Entry:
     graph: "torch.cuda.CUDAGraph"
@@ -213,6 +226,7 @@ class _Entry:
     out: object                  # the output structure noted at capture
     outputs: List[torch.Tensor]  # its tensor leaves (the graph writes them)
     collectives: Dict[str, int]  # what the capture counted (mesh.counts)
+    steps: Counter               # what the capture noted (counters.py)
 
 
 class StagedCall:
@@ -265,6 +279,11 @@ class StagedCall:
         else:
             for dst, src in zip(entry.inputs, tensors):
                 dst.copy_(src)
+        return self._replay(entry)
+
+    def _replay(self, entry: _Entry):
+        """Replay ``entry``'s graph, credit what its capture counted, and
+        return its output with the tensors cloned."""
         try:
             entry.graph.replay()
         except RuntimeError as e:
@@ -274,6 +293,7 @@ class StagedCall:
         if mesh_mod.counts is not None:
             for k, v in entry.collectives.items():
                 mesh_mod.counts[k] += v
+        counters.credit(entry.steps)
         return _rebuild(entry.out, iter([t.clone() for t in entry.outputs]))
 
     def _capture(self, key, args, tensors, device) -> _Entry:
@@ -292,8 +312,8 @@ class StagedCall:
                 main = torch.cuda.current_stream(device)
                 side = torch.cuda.Stream(device)
                 side.wait_stream(main)
-                with torch.cuda.stream(side), _collectives_into(None):
-                    self.fn(*static_args)
+                with torch.cuda.stream(side):
+                    _run_noting(self.fn, static_args, None, None)
                 main.wait_stream(side)
                 torch.cuda.synchronize(device)
                 t1 = time.perf_counter()
@@ -302,14 +322,14 @@ class StagedCall:
                 torch.cuda.empty_cache()
                 graph = torch.cuda.CUDAGraph()
                 pool = torch.cuda.graph_pool_handle()
-                collectives = mesh_mod.zero_counts()
-                with torch.cuda.stream(side), _collectives_into(collectives):
+                collectives, steps = mesh_mod.zero_counts(), Counter()
+                with torch.cuda.stream(side):
                     # "thread_local": the stage's own thread may make no
                     # call that a capture cannot hold (a host sync, a copy
                     # from pageable memory); other threads are not ours
                     graph.capture_begin(pool=pool, capture_error_mode="thread_local")
                     try:
-                        result = self.fn(*static_args)
+                        result = _run_noting(self.fn, static_args, collectives, steps)
                         graph.capture_end()
                     except Exception as e:
                         _abort_capture(graph, pool, device)
@@ -323,7 +343,7 @@ class StagedCall:
             self.guard.release()
         outputs: List[torch.Tensor] = []
         _walk(result, outputs, {})
-        entry = _Entry(graph, inputs, result, outputs, collectives)
+        entry = _Entry(graph, inputs, result, outputs, collectives, steps)
         self._entries[key] = entry
         counts["captures"] += 1
         self.captures += 1
