@@ -10,9 +10,11 @@ there is no card or when the port's package is missing.
 Phases (each prints one JSON line; any failure ends the run non-zero):
 
 1. ``device``      torch / CUDA versions, the card's name and power limit.
-2. ``build``       builds, side by side, the CUDA kernels (``nvcc``) and the
-   port's plugin library with the harness (``g++``: ``csrc/capi_shim.cpp``,
-   ``native/src/native_harness.cpp``) from the sources in the checkout.
+2. ``build``       builds, side by side, the CUDA kernels (``nvcc``: the NTT
+   kernels, and the fused BEHZ kernel for the registered BFV context's 4 q
+   limbs) and the port's plugin library with the harness (``g++``:
+   ``csrc/capi_shim.cpp``, ``native/src/native_harness.cpp``) from the
+   sources in the checkout.
 3. ``kernel_checks`` ``ntt_fwd`` / ``ntt_inv`` against their plain PyTorch
    versions on the card (integers: tolerance 0) at N = 8192 with the
    registered context's primes, at N = 16384 and 32768, at the shapes a dot
@@ -30,10 +32,18 @@ Phases (each prints one JSON line; any failure ends the run non-zero):
    their 8-limb plans over a q window u Bsk, the limb windows and digit
    lifts of logistic regression at N = 32768 with digit groups of 3, and the
    harness's own sizes).
+   ``behz_checks`` the fused BEHZ kernel (``csrc/behz.cu``) against the
+   plain steps it replaces (``evaluator/behz.py:floor_sk_plain``) at the
+   cipher-batch-axis cell's tensor product, ``[720, 3, 10, 8192]``, with a
+   product of zeros and one of p - 1 in every row (tolerance 0).
    ``kernel_times`` (run last) both kernels timed at
    ``[64, 7, 8192]``, at the one-wave shapes of a 1 x 1 dot product, with the
    logistic-regression context's plan at N = 16384 and with a 14-limb plan at
    N = 32768, each beside its bound; the plain versions at ``[64, 7, 8192]``.
+   ``behz_times`` (after it) the fused BEHZ kernel at ``[720, 3, 10, 8192]``
+   (graph replay, call by call, and the plain steps), beside its bound from
+   its bytes and from its own instructions, counted in its SASS
+   (``cuobjdump``) at each pipe's most per clock.
 4. ``main_path``   the port's harness runner on all 20 descriptors at their
    registered parameters, 128-bit security enforced, seed 1234: under CKKS
    and BFV element-wise and dot product at N = 8192, depth 2, 8 x 8 sample
@@ -154,7 +164,8 @@ Phases (each prints one JSON line; any failure ends the run non-zero):
    ``bench_suite.json`` ``describe`` records them (``BENCH_DESCRIBE``); at
    N = 32768 a replay's K1 / K2 kernels, counted in padded traces, equal
    to an eager ``operate``'s launches.  Prints the record.
-9. the ``kernels`` line (``launches``: the main-path run, counted where the
+9. the ``kernels`` line, the NTT kernels and the fused BEHZ kernel
+   (``launches``: the main-path run, counted where the
    wrapper launches: the eager warm-ups, the captures and the eager
    ``operate`` calls held against the replays; ``sp_path_launches``:
    the sp runs of ``sp_path``; ``limb_path_launches``: the placed chains of
@@ -171,10 +182,13 @@ import math
 import os
 import re
 import statistics
+import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import torch
 
@@ -294,6 +308,21 @@ OPS_PER_OUTPUT = {"ntt_fwd": 4, "ntt_inv": 5}
 # what this script counted before it counted instructions: 10 per butterfly,
 # 6 per output; kept so that earlier records compare
 OPS_PER_BUTTERFLY_BEFORE, OPS_PER_OUTPUT_BEFORE = 10, 6
+# The fused BEHZ kernel (csrc/behz.cu) at the cipher-batch-axis cell's tensor
+# product: [720 products, 3, k + kb, N] of the registered BFV context (k = 4
+# q limbs, kb = 6, N = 8192).  Its least time: its bytes over HBM's peak,
+# and its own instructions (read from its SASS) at the most an SM takes of
+# them in a clock: one warp instruction per scheduler (twice the int32 lane
+# count), and the int32 lane count on each of the FMA pipe (IMAD, IMUL) and
+# the ALU pipe (the other integer instructions).  An instruction that holds
+# its pipe longer than a clock (IMAD.WIDE) counts once: the bound is then
+# below the truth, never above it.
+BEHZ_SHAPE = (720, 3, 10, 8192)
+BFV_K = 4
+FMA_PIPE = {"IMAD", "IMUL"}
+ALU_PIPE = {"IADD3", "VIADD", "LOP3", "ISETP", "IMNMX", "VIMNMX", "VIADDMNMX",
+            "SEL", "SHF", "LEA", "PLOP3", "IABS"}
+BRANCHES = {"BRA", "BRX", "JMP", "JMX", "CALL", "RET", "BSSY", "BSYNC", "WARPSYNC"}
 
 
 def emit(obj) -> None:
@@ -595,6 +624,139 @@ def phase_kernel_times(device):
     return rows[0]
 
 
+def behz_context(device):
+    """The registered BFV context and its BEHZ tables (which build the fused
+    kernel's library of its k)."""
+    from reference_seal_backend_tpu_torch.evaluator import behz
+    from reference_seal_backend_tpu_torch.schemes.params import make_bfv_context
+
+    ctx = make_bfv_context(device=device)
+    if (ctx.L, len(ctx.bsk_primes), ctx.n) != (
+            BFV_K, BEHZ_SHAPE[2] - BFV_K, BEHZ_SHAPE[3]):
+        fail(f"registered BFV context changed: k={ctx.L} "
+             f"kb={len(ctx.bsk_primes)} N={ctx.n}")
+    return ctx, behz.tables_for(ctx)
+
+
+def phase_behz_checks(device):
+    """``behz_checks``: the fused BEHZ kernel against the plain steps it
+    replaces (``evaluator/behz.py:floor_sk_plain``: ``_fbc_q_to_bsk`` ->
+    ``floor_bsk`` -> ``_sk_to_q`` -> the Montgomery entry) on the card at
+    ``BEHZ_SHAPE``, one product all zeros and one p - 1 in every row;
+    integers, tolerance 0, one launch."""
+    from reference_seal_backend_tpu_torch.evaluator import behz
+    from reference_seal_backend_tpu_torch.ops.cuda import behz as behz_cuda
+    from reference_seal_backend_tpu_torch.utils.kernel_bench import random_residues
+
+    t0 = time.perf_counter()
+    ctx, tb = behz_context(device)
+    primes = ctx.data_primes + ctx.bsk_primes
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 3)
+    x = random_residues(gen, primes, BEHZ_SHAPE[:2], 0, len(primes), ctx.n, 1, device)
+    x[0, 0] = 0
+    x[0, 1] = torch.tensor([p - 1 for p in primes], dtype=x.dtype, device=device)[:, None]
+    before = behz_cuda.launches["behz_floor_sk"]
+    got = behz_cuda.floor_sk(x, tb)
+    launched = behz_cuda.launches["behz_floor_sk"] - before
+    want = behz.floor_sk_plain(tb, x)
+    torch.cuda.synchronize()
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    if err or launched != 1 or got.shape != want.shape:
+        fail(f"behz_floor_sk disagrees with the plain steps at {list(x.shape)}: "
+             f"max_abs_err {err}, launches {launched}")
+    emit({"phase": "behz_checks", "shape": list(x.shape), "k": ctx.L,
+          "kb": len(ctx.bsk_primes), "max_abs_err": err, "tolerance": 0,
+          "seconds": time.perf_counter() - t0})
+    return err
+
+
+def sass_mix(library):
+    """The instructions of the fused BEHZ kernel in ``library`` (its SASS,
+    by ``cuobjdump``), by opcode without modifiers, up to its last ``EXIT``
+    (after it only padding).  The kernel has no branch (every loop unrolls),
+    so each thread issues each instruction once; a branch fails the run,
+    since a count of the code would then not be a count of what runs."""
+    from reference_seal_backend_tpu_torch.ops.cuda import nvcc
+
+    tool = Path(nvcc.find_nvcc()).with_name("cuobjdump")
+    proc = subprocess.run([str(tool), "-sass", str(library)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        fail(f"cuobjdump -sass failed ({proc.returncode}): {proc.stderr[-2000:]}")
+    ops, inside = [], False
+    for line in proc.stdout.splitlines():
+        if "Function :" in line:
+            inside = "behz_floor_sk_kernel" in line
+            continue
+        m = re.search(r"/\*[0-9a-f]+\*/\s+(?:@!?\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if inside and m:
+            ops.append(m.group(1))
+    if "EXIT" not in ops:
+        fail("sass_mix: no behz_floor_sk_kernel with an EXIT in the SASS")
+    ops = ops[: len(ops) - ops[::-1].index("EXIT")]
+    mix = Counter(op for op in ops if op != "NOP")
+    if BRANCHES & set(mix):
+        fail(f"sass_mix: the kernel branches: {dict(mix)}")
+    return mix
+
+
+def behz_bound(mix, cols, k):
+    """Least milliseconds of the fused kernel over ``cols`` coefficient
+    columns of ``k`` q limbs (``BEHZ_SHAPE``'s note)."""
+    words = (k + (k + 2)) + k  # q and Bsk rows in, q rows out
+    at = lambda count, rate: cols * count / rate * 1e3
+    parts = {
+        "bytes_ms": cols * words * 4 / PEAK_BYTES_PER_S * 1e3,
+        "issue_ms": at(sum(mix.values()), 2 * PEAK_INT32_OPS_PER_S),
+        "fma_pipe_ms": at(sum(mix[op] for op in FMA_PIPE), PEAK_INT32_OPS_PER_S),
+        "alu_pipe_ms": at(sum(mix[op] for op in ALU_PIPE), PEAK_INT32_OPS_PER_S),
+    }
+    by = max(parts, key=parts.get)
+    return {"bound_ms": parts[by], "bound_by": by[: -len("_ms")], **parts}
+
+
+def phase_behz_times(device):
+    """``behz_times``: the fused BEHZ kernel at ``BEHZ_SHAPE``: device time
+    of a CUDA graph's replay over two inputs that together exceed the L2,
+    the same launched call by call from the host (``eager_ms``), and the
+    plain steps it replaces (``plain_ms``), beside its least time from its
+    bytes and its own instruction mix (:func:`sass_mix`)."""
+    from reference_seal_backend_tpu_torch.evaluator import behz
+    from reference_seal_backend_tpu_torch.ops.cuda import behz as behz_cuda
+    from reference_seal_backend_tpu_torch.utils.kernel_bench import (
+        random_residues,
+        time_eager_ms,
+        time_graph_ms,
+    )
+
+    t0 = time.perf_counter()
+    ctx, tb = behz_context(device)
+    primes = ctx.data_primes + ctx.bsk_primes
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 4)
+    xs = [random_residues(gen, primes, BEHZ_SHAPE[:2], 0, len(primes), ctx.n, 1,
+                          device) for _ in range(2)]
+    fused = lambda v: behz_cuda.floor_sk(v, tb)
+    mix = sass_mix(behz_cuda._libs[ctx.L]._name)
+    cols = math.prod(BEHZ_SHAPE[:2]) * ctx.n
+    row = {
+        "shape": list(BEHZ_SHAPE),
+        "l2_cold": 2 * xs[0].numel() * 4 >= L2_BYTES,
+        "ms": time_graph_ms(fused, xs, 20),
+        "eager_ms": time_eager_ms(fused, xs, 20),
+        "plain_ms": time_eager_ms(lambda v: behz.floor_sk_plain(tb, v), xs, 4),
+        **behz_bound(mix, cols, ctx.L),
+        "instructions_per_column": sum(mix.values()),
+        "fma_pipe_per_column": sum(mix[op] for op in FMA_PIPE),
+        "alu_pipe_per_column": sum(mix[op] for op in ALU_PIPE),
+        "sass": dict(mix.most_common()),
+    }
+    emit({"phase": "behz_times", "method": "CUDA graph replay, CUDA events",
+          "seconds": time.perf_counter() - t0, **row})
+    return row
+
+
 def compare_with_eager(bench, loaded, result):
     """``main_path``'s ``after_timing``: on the benchmark the runner just
     timed, ``operate`` replayed and with its stages eager
@@ -634,6 +796,7 @@ def compare_with_eager(bench, loaded, result):
 def phase_main_path(device):
     from reference_seal_backend_tpu_torch.engine import runner
     from reference_seal_backend_tpu_torch.ops import ntt as ntt_mod
+    from reference_seal_backend_tpu_torch.ops.cuda import behz as behz_cuda
     from reference_seal_backend_tpu_torch.ops.cuda import ntt as ntt_cuda
     from reference_seal_backend_tpu_torch.utils import staging
 
@@ -645,6 +808,7 @@ def phase_main_path(device):
     with tempfile.TemporaryDirectory() as report_dir:
         ntt_mod.call_log = {}  # every view the kernels are handed
         ntt_cuda.reset_launches()
+        behz_cuda.reset_launches()
         staging.reset_counts()
         t0 = time.perf_counter()
         results = runner.run_all(
@@ -653,7 +817,7 @@ def phase_main_path(device):
         )
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = dict(ntt_cuda.launches)
+        launches = {**ntt_cuda.launches, **behz_cuda.launches}
         graphs = dict(staging.counts)
         views, ntt_mod.call_log = ntt_mod.call_log, None
     failed = [r.name for r in results if not r.passed]
@@ -1537,9 +1701,10 @@ def cleartext_error(desc, outs, want):
 
 
 def behz_tables_cold_ms(ctx, device):
-    """Milliseconds to build from nothing what the first BFV multiply of a
-    process builds (``evaluator/behz.py:tables_for``): the NTT plan over
-    q u Bsk, and the tables around it."""
+    """Milliseconds to build from nothing what a BFV benchmark's set-up
+    builds on the card (``evaluator/behz.py:tables_for``): the NTT plan over
+    q u Bsk, and the tables around it with the fused kernel's constants
+    (its library already loaded)."""
     from reference_seal_backend_tpu_torch.evaluator import behz
     from reference_seal_backend_tpu_torch.ops import ntt as ntt_mod
 
@@ -1795,6 +1960,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from reference_seal_backend_tpu_torch.engine import native
+    from reference_seal_backend_tpu_torch.ops.cuda import behz as behz_cuda
     from reference_seal_backend_tpu_torch.ops.cuda import ntt as ntt_cuda
     from reference_seal_backend_tpu_torch.utils.device import (
         card_name_and_power_limit,
@@ -1811,29 +1977,40 @@ def main() -> int:
     # the kernels (nvcc) and the plugin library with the harness (g++), side
     # by side
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         nvcc = pool.submit(ntt_cuda.build)
+        nvcc_behz = pool.submit(behz_cuda.build, BFV_K)
         gxx = pool.submit(native.build)
-        seconds, built = nvcc.result(), gxx.result()
+        seconds, behz_s, built = nvcc.result(), nvcc_behz.result(), gxx.result()
     emit({"phase": "build",
           "sources": ["reference_seal_backend_tpu_torch/csrc/ntt.cu",
+                      "reference_seal_backend_tpu_torch/csrc/behz.cu",
                       "reference_seal_backend_tpu_torch/csrc/capi_shim.cpp",
                       "native/src/native_harness.cpp"],
           "specialised_log_n": list(ntt_cuda.KERNEL_LOG_NS),
-          "seconds": {"ntt.cu": seconds, "capi_shim.cpp + native_harness.cpp":
-                      built.seconds, "wall": time.perf_counter() - t0}})
+          "seconds": {"ntt.cu": seconds, f"behz.cu (k = {BFV_K})": behz_s,
+                      "capi_shim.cpp + native_harness.cpp": built.seconds,
+                      "wall": time.perf_counter() - t0}})
+
+    def behz_launched(phase, *args):
+        """``phase(*args)`` and the fused BEHZ kernel's launches in it."""
+        before = behz_cuda.launches["behz_floor_sk"]
+        return phase(*args), behz_cuda.launches["behz_floor_sk"] - before
 
     worst = phase_kernels(device)
+    worst["behz_floor_sk"] = phase_behz_checks(device)
     launches, views, main_benchmarks = phase_main_path(device)
-    sp_launches, sp_worst = phase_sp_path(device)
-    limb_launches, limb_views = phase_limb_path(device)
-    bench_launches, bench_views = phase_bench_path(device)
-    capi_launches, capi_views = phase_capi_path(built, device, main_benchmarks)
+    (sp_launches, sp_worst), sp_behz = behz_launched(phase_sp_path, device)
+    (limb_launches, limb_views), limb_behz = behz_launched(phase_limb_path, device)
+    (bench_launches, bench_views), bench_behz = behz_launched(phase_bench_path, device)
+    (capi_launches, capi_views), capi_behz = behz_launched(
+        phase_capi_path, built, device, main_benchmarks)
     on_path = phase_path_views({"main_path": views, "capi_path": capi_views,
                                 "limb_path": limb_views,
                                 "bench_path": bench_views}, device)
-    worst = {k: max(worst[k], on_path[k], sp_worst[k]) for k in worst}
+    worst.update({k: max(worst[k], on_path[k], sp_worst[k]) for k in on_path})
     timed = phase_kernel_times(device)
+    behz_timed = phase_behz_times(device)
 
     replaces = {
         "ntt_fwd": "reference_seal_backend_tpu/ops/pallas/ntt_kernel.py:186",
@@ -1861,7 +2038,27 @@ def main() -> int:
             "bound_ms_at_10_ops": timed[name]["bound_ms_at_10_ops"],
         }
         for name in ("ntt_fwd", "ntt_inv")
-    ]})
+    ] + [{
+        "name": "behz_floor_sk",
+        "route": "cuda",
+        "source": "reference_seal_backend_tpu_torch/csrc/behz.cu",
+        "replaces": "no TPU kernel: the JAX package runs these BEHZ steps as "
+                    "XLA elementwise code (reference_seal_backend_tpu/"
+                    "evaluator/behz.py)",
+        "launches": launches["behz_floor_sk"],
+        "sp_path_launches": sp_behz,
+        "limb_path_launches": limb_behz,
+        "bench_path_launches": bench_behz,
+        "capi_path_launches": capi_behz,
+        "max_abs_err": worst["behz_floor_sk"],
+        "ms": behz_timed["ms"],
+        "plain_ms": behz_timed["plain_ms"],
+        "bound_ms": behz_timed["bound_ms"],
+        "bound_by": behz_timed["bound_by"],
+        "library_ms": None,  # no PyTorch call computes a BEHZ floor mod q
+        "shape": behz_timed["shape"],
+        "eager_ms": behz_timed["eager_ms"],
+    }]})
     print(f"total_seconds {time.perf_counter() - t_start:.1f}", flush=True)
     print(card, flush=True)
     emit({"ok": True, "device": {

@@ -26,7 +26,10 @@ inverse transforms of the tensor product over q u Bsk on one limb axis
 (``BehzTables.mult_plan``), and the output's forward transform.  Between
 them the arithmetic is plain tensor code in the wide domain of
 ``ops/modops.py`` (int64 values in [0, 2**32), masked where a uint32
-would wrap); the tables are kept wide on the device for that reason.
+would wrap); the tables are kept wide on the device for that reason.  On
+the card, the flat multiply runs steps 4 and 5 and the output's entry into
+Montgomery form as one uint32 kernel (``csrc/behz.cu``), whose oracle these
+functions are; the limb path and the CPU run the functions.
 
 Row windows.  Every step that reads q limbs takes the first q row ``lo``
 of the rows it is given (``r`` of them; all ``k`` in the flat multiply),
@@ -49,6 +52,7 @@ import torch
 
 from reference_seal_backend_tpu_torch.ops import modops
 from reference_seal_backend_tpu_torch.ops import ntt as ntt_mod
+from reference_seal_backend_tpu_torch.ops.cuda import behz as behz_cuda
 from reference_seal_backend_tpu_torch.schemes.core import Ciphertext
 from reference_seal_backend_tpu_torch.schemes.params import BfvContext
 from reference_seal_backend_tpu_torch.utils import counters
@@ -156,6 +160,11 @@ class BehzTables:
             torch.cat([self.q_r1[0], self.bsk_r1[0]], dim=0),
             torch.cat([self.q_r1[1], self.bsk_r1[1]], dim=0),
         )
+        # On the card, the fused kernel of this k (ops/cuda/behz.py), built
+        # and its constants packed now, outside any graph capture; a k that
+        # it does not take is refused here.
+        if dev.type == "cuda":
+            behz_cuda.prepare(self)
 
 
 @functools.lru_cache(maxsize=None)
@@ -360,23 +369,19 @@ def to_coeff(ctx: BfvContext, tb: BehzTables, ab: torch.Tensor, lo: int = 0):
 
 
 def tensor_product(tb: BehzTables, ab_q: torch.Tensor, ab_bsk: torch.Tensor,
-                   lo: int = 0):
+                   lo: int = 0) -> torch.Tensor:
     """Step 3 of the multiply on the q rows ``[lo, lo + r)`` and all of
-    Bsk: ``(prod_q [..., 3, r, N], prod_bsk [..., 3, kb, N])``, normal
-    coefficients.  One forward and one inverse sweep over the window's
-    tensor base (:func:`window`)."""
+    Bsk, as its inverse sweep leaves it: ``[..., 3, r + kb, N]`` storage,
+    normal coefficients, the window's q rows then Bsk.  One forward and one
+    inverse sweep over the window's tensor base (:func:`window`)."""
     w = modops.wide
-    r = ab_q.shape[-2]
-    plan, p, pni, r1 = window(tb, lo, r)
+    plan, p, pni, r1 = window(tb, lo, ab_q.shape[-2])
     x_all = torch.cat([ab_q, ab_bsk], dim=-2)  # [2ab, ..., 2, r+kb, N]
     # Operand a enters Montgomery form (xR) so that the dyadic Montgomery
     # products land in normal form; operand b stays normal.
     x_all = torch.cat([modops.w_shoup_mul(x_all[:1], *r1, p), x_all[1:]], dim=0)
     ntt_all = w(plan.fwd(modops.narrow(x_all), lo=0))
-    prod = w(plan.inv(
-        modops.narrow(_tensor(ntt_all[0], ntt_all[1], p, pni)), lo=0
-    ))  # [..., 3, r+kb, N] normal coefficients
-    return prod[..., :r, :], prod[..., r:, :]
+    return plan.inv(modops.narrow(_tensor(ntt_all[0], ntt_all[1], p, pni)), lo=0)
 
 
 def floor_bsk(tb: BehzTables, prod_bsk: torch.Tensor, fbc: torch.Tensor):
@@ -396,10 +401,24 @@ def to_ntt(ctx: BfvContext, tb: BehzTables, out_q: torch.Tensor, lo: int = 0):
         out_q, tb.q_r1[0][win], tb.q_r1[1][win], tb.q_p[win])), lo=lo)
 
 
+def floor_sk_plain(tb: BehzTables, prod: torch.Tensor) -> torch.Tensor:
+    """The steps that ``csrc/behz.cu`` fuses, as the flat multiply runs them
+    off the card: the tensor product ``[..., k + kb, N]`` (storage, as
+    :func:`tensor_product` returns it) floored by q in Bsk, converted back
+    to q and entered into Montgomery form, ``[..., k, N]`` storage, the
+    output's forward sweep's input.  The kernel's oracle."""
+    k, w = tb.ctx.L, modops.wide(prod)
+    y = floor_bsk(tb, w[..., k:, :], _fbc_q_to_bsk(tb, w[..., :k, :], tb.t_qhinv))
+    return modops.narrow(modops.w_shoup_mul(_sk_to_q(tb, y), *tb.q_r1, tb.q_p))
+
+
 def bfv_multiply(ctx: BfvContext, a: Ciphertext, b: Ciphertext) -> Ciphertext:
     """BFV ct-ct multiply (no relinearization): 3-component result.
     Leading batch axes of ``a`` and ``b`` broadcast.  The steps of a limb
-    block (``parallel/limb.py:bfv_multiply``) at the window ``(0, k)``."""
+    block (``parallel/limb.py:bfv_multiply``) at the window ``(0, k)``.
+    On the card the steps from the tensor product's inverse sweep to the
+    output's forward sweep are one kernel (``ops/cuda/behz.py``), equal bit
+    for bit to the plain steps that run on the CPU."""
     tb = tables_for(ctx)
     if a.size != 2 or b.size != 2:
         raise NotImplementedError("bfv multiply expects size-2 inputs")
@@ -418,12 +437,24 @@ def bfv_multiply(ctx: BfvContext, a: Ciphertext, b: Ciphertext) -> Ciphertext:
         with counters.step("behz.conv_q_bsk_mtilde", D, k, kb, n, wide):
             ab_bsk = _conv_to_bsk_mtilde(tb, ab_q)  # [2ab, ..., 2, kb, N]
         with counters.step("behz.tensor_product", P, k + kb, k + kb, n, wide, D):
-            prod_q, prod_bsk = tensor_product(tb, ab_q, ab_bsk)
-        # scale by t, floor-divide by q (in Bsk), convert exactly back to q
-        with counters.step("behz.floor_q_bsk", 3 * P, k, kb, n, wide):
-            y_bsk = floor_bsk(tb, prod_bsk, _fbc_q_to_bsk(tb, prod_q, tb.t_qhinv))
-        with counters.step("behz.sk_bsk_q", 3 * P, kb, k, n, wide):
-            out_q = _sk_to_q(tb, y_bsk)
-        with counters.step("behz.to_ntt", 3 * P, k, k, n, store):
-            out_ntt = to_ntt(ctx, tb, out_q)
+            prod = tensor_product(tb, ab_q, ab_bsk)  # [..., 3, k + kb, N] storage
+        if prod.is_cuda:
+            # the floor, the conversion back to q and the Montgomery entry in
+            # one kernel; its steps counted as the plain path counts them
+            counters.note("behz.floor_q_bsk", 3 * P, k, kb, n, wide)
+            counters.note("behz.sk_bsk_q", 3 * P, kb, k, n, wide)
+            with counters.step("behz.fused_floor_sk", 3 * P, k + kb, k, n, store):
+                out_q = behz_cuda.floor_sk(prod, tb)
+            with counters.step("behz.to_ntt", 3 * P, k, k, n, store):
+                out_ntt = ctx.plan.fwd(out_q)
+        else:
+            prod = modops.wide(prod)
+            prod_q, prod_bsk = prod[..., :k, :], prod[..., k:, :]
+            # scale by t, floor-divide by q (in Bsk), convert exactly back to q
+            with counters.step("behz.floor_q_bsk", 3 * P, k, kb, n, wide):
+                y_bsk = floor_bsk(tb, prod_bsk, _fbc_q_to_bsk(tb, prod_q, tb.t_qhinv))
+            with counters.step("behz.sk_bsk_q", 3 * P, kb, k, n, wide):
+                out_q = _sk_to_q(tb, y_bsk)
+            with counters.step("behz.to_ntt", 3 * P, k, k, n, store):
+                out_ntt = to_ntt(ctx, tb, out_q)
     return Ciphertext(data=out_ntt, level=ctx.L, scale=1.0, is_ntt=True)

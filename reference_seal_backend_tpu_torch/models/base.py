@@ -44,6 +44,7 @@ from reference_seal_backend_tpu_torch.engine.descriptor import (
     Category,
     Scheme,
 )
+from reference_seal_backend_tpu_torch.evaluator import behz
 from reference_seal_backend_tpu_torch.evaluator.eval import Evaluator
 from reference_seal_backend_tpu_torch.parallel import mesh as mesh_mod
 from reference_seal_backend_tpu_torch.parallel import sp_eval
@@ -165,6 +166,10 @@ class HEBenchmark(abc.ABC):
                 self.ctx, self.keys, seed=key_seed
             )
             self.decryptor = bfv_mod.BfvDecryptor(self.ctx, self.keys)
+            if self.ctx.device.type == "cuda":
+                # the BEHZ tables, and with them the fused kernel's library,
+                # in set-up, as keygen builds the NTT kernels' library
+                behz.tables_for(self.ctx)
         self.ev = Evaluator(self.ctx, self.keys)
         self.sp_shard = int(p.get("sp_shard", 0) or 0)
         if self.sp_shard:

@@ -2,7 +2,7 @@
 
 ``ntt_fwd`` and ``ntt_inv`` replace the two branches of the JAX package's
 TPU kernel (``ops/pallas/ntt_kernel.py:_ntt_kernel``).  The source is built
-with ``nvcc`` for ``sm_90a`` at first use, from this package into
+with ``nvcc`` for ``sm_90a`` at first use (``ops/cuda/nvcc.py``), into
 ``<package>/_build/`` (git-ignored), and loaded with ``ctypes``: one shared
 library that holds the kernels specialised for the transform sizes of
 :data:`KERNEL_LOG_NS` and the generic kernels that take any other power of
@@ -23,27 +23,14 @@ exactly where it launches.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 from typing import Dict, Optional, Tuple
 
 import torch
 
+from reference_seal_backend_tpu_torch.ops.cuda import nvcc
 from reference_seal_backend_tpu_torch.ops.modops import STORE
 
-_PKG = Path(__file__).resolve().parents[2]
-SOURCE = _PKG / "csrc" / "ntt.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-    # the 20 specialised kernels are optimised side by side, on every core
-    "-split-compile=0",
-)
+SOURCE = nvcc.CSRC / "ntt.cu"
 
 #: log2 N of the sizes the kernels are specialised for (N = 2048 .. 32768);
 #: the switch in ``csrc/ntt.cu:transform`` names the same
@@ -60,19 +47,6 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
-def _find_nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if root and (Path(root) / "bin" / "nvcc").exists():
-            return str(Path(root) / "bin" / "nvcc")
-    raise RuntimeError(
-        "nvcc not found (PATH, CUDA_HOME, /usr/local/cuda): the CUDA NTT "
-        "kernel cannot be built"
-    )
-
-
 def build() -> float:
     """Build (if not built from this source yet) and load the kernel
     library.  Returns the seconds spent compiling, 0.0 when it was
@@ -80,24 +54,7 @@ def build() -> float:
     global _lib
     if _lib is not None:
         return 0.0
-    digest = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    so = BUILD_DIR / f"libntt-{digest}.so"
-    seconds = 0.0
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = BUILD_DIR / f".libntt-{digest}.{os.getpid()}.so"
-        cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-            )
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+    lib, seconds = nvcc.load(SOURCE, "ntt")
     vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.rsb_ntt_fwd.argtypes = [vp, vp, vp, vp, vp, ll, ci, ci, ll, ci, ci, ci, vp]
     lib.rsb_ntt_fwd.restype = ci

@@ -304,7 +304,8 @@ def bfv_multiply(ev, a: Ciphertext, b: Ciphertext) -> Ciphertext:
         ctx, tb, lo = tables(c)
         s = modops.wide(conv[c])
         ab_bsk = behz._conv_finish(tb, s[..., :kb, :], s[..., kb, :])
-        prod_q, prod_bsk[c] = behz.tensor_product(tb, ab_q[c], ab_bsk, lo)
+        prod = modops.wide(behz.tensor_product(tb, ab_q[c], ab_bsk, lo))
+        prod_q, prod_bsk[c] = prod[..., :rows, :], prod[..., rows:, :]
         parts[c] = modops.narrow(behz._fbc_partial(tb, prod_q, tb.t_qhinv, lo))
     fbc = mesh_mod.all_reduce_mod(parts, mesh, axis, tb0.bsk_p, True)
     # the floor in Bsk, then each block's own q rows back to NTT form

@@ -24,7 +24,12 @@ output; ``extra`` as the step's note says.  The steps:
   the operands count the operands' distinct polynomials, as stored before
   they broadcast against each other, not the copies the program makes:
   ``polys`` of the first two, ``extra`` = ``(operand polys,)`` of the
-  tensor product, whose ``polys`` are its products;
+  tensor product, whose ``polys`` are its products.  On the card
+  ``behz.fused_floor_sk`` (``polys`` the 3P product polynomials, ``rows_in``
+  = k + kb, ``rows_out`` = k) notes the one kernel that runs the floor,
+  the conversion back to q and the Montgomery entry; ``behz.floor_q_bsk``
+  and ``behz.sk_bsk_q`` are noted beside it, without spans, as the work it
+  does;
 * ``relinearize``: ``polys`` size-3 ciphertexts at level ``rows_in``,
   ``extra`` = ``(special primes, key-switch digits)``.
 

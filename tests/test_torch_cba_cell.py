@@ -4,8 +4,9 @@ N = 2048 with 128-bit enforcement off and 2 x 3 . 3 x 2 matrices: the
 port through the harness's own path (``perf_bench/system.py``) against the
 plain reference, the counters of one ``operate`` (``utils/counters.py``)
 and their crediting per replay, the least-time reckoning
-(``perf_bench/bfv_roofline.py``), the NTT guard's transforms, and one whole
-run of the cell from files.
+(``perf_bench/bfv_roofline.py``), the NTT guard's transforms, one whole
+run of the cell from files, and the multiply's plain steps on the CPU and
+on the limb path (the fused kernel of ``ops/cuda/behz.py`` is the card's).
 
 No JAX and nothing of the JAX package: the reference is the plain one of
 the benchmark.  At most seven test items (xdist's ``--dist loadfile``
@@ -27,9 +28,14 @@ from perf_bench.conftest import HERE, TINY_N, make_root, run_cell
 from perf_bench.references import matrix_multiply
 from perf_bench.roofline import PEAK_BYTES_PER_S, PEAK_INT32_OPS_PER_S
 from perf_bench.system import System
-from reference_seal_backend_tpu_torch.ops import ntt as ntt_mod
+from reference_seal_backend_tpu_torch.evaluator import behz
+from reference_seal_backend_tpu_torch.evaluator.eval import Evaluator
+from reference_seal_backend_tpu_torch.ops import modops, ntt as ntt_mod
+from reference_seal_backend_tpu_torch.ops.cuda import behz as behz_cuda
 from reference_seal_backend_tpu_torch.ops.cuda import ntt as ntt_cuda
 from reference_seal_backend_tpu_torch.parallel import mesh as mesh_mod
+from reference_seal_backend_tpu_torch.schemes.core import Ciphertext
+from reference_seal_backend_tpu_torch.schemes.params import make_bfv_context
 from reference_seal_backend_tpu_torch.utils import counters, staging
 
 # at these sizes intra-op threads gain nothing, and beside the suite's
@@ -205,3 +211,42 @@ def test_the_cell_runs_from_files(tmp_path):
     out = control.control(cell_mod.load(root, "tiny_cba.latency"), SEED)
     assert out["dtype"] == "float16" and out["correct"] is False
     assert math.isfinite(result["metrics"]["operate_ms"]["value"])
+
+
+def test_the_cpu_and_the_limb_path_run_the_plain_steps(monkeypatch):
+    # the fused kernel is the card's: a CPU tensor, flat or in limb blocks,
+    # takes the plain floor and Shenoy-Kumaresan steps and launches nothing
+    ctx = make_bfv_context(TINY_N, sec_level=0, device="cpu")
+    gen = torch.Generator().manual_seed(11)
+    cols = [torch.randint(0, p, (2, 2, TINY_N), generator=gen, dtype=torch.int64)
+            for p in ctx.data_primes]
+    data = modops.narrow(torch.stack(cols, dim=-2))
+    a, b = (Ciphertext(data=d, level=ctx.L) for d in (data, data.flip(0)))
+
+    def refused(*args):
+        raise AssertionError("the fused BEHZ kernel was called off the card")
+
+    ran = Counter()
+
+    def counted(name, f):
+        def run(*args, **kwargs):
+            ran[name] += 1
+            return f(*args, **kwargs)
+        monkeypatch.setattr(behz, name, run)
+
+    monkeypatch.setattr(behz_cuda, "floor_sk", refused)
+    for name in ("_fbc_q_to_bsk", "_fbc_partial", "floor_bsk", "_sk_to_q"):
+        counted(name, getattr(behz, name))
+    launched = dict(behz_cuda.launches)
+    counters.reset()
+    flat = behz.bfv_multiply(ctx, a, b)
+    assert ran == Counter(_fbc_q_to_bsk=1, _fbc_partial=1, floor_bsk=1, _sk_to_q=1)
+    assert not any(key[0] == "behz.fused_floor_sk" for key in counters.counts)
+    ran.clear()
+    mesh = mesh_mod.make_mesh(2, devices=[torch.device("cpu")] * 2)
+    place = lambda c: mesh_mod.shard_ct(c, mesh, n_batch_axes=1, batch_axes=(None,),
+                                        limb_axis="limb")
+    placed = Evaluator(ctx, None).multiply(place(a), place(b))
+    assert ran == Counter(_fbc_partial=2, floor_bsk=2, _sk_to_q=2)  # one a block
+    assert torch.equal(placed.data.gather(torch.device("cpu")), flat.data)
+    assert behz_cuda.launches == launched

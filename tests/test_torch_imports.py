@@ -62,8 +62,8 @@ assert res[0].passed, res[0].error
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "reference_seal_backend_tpu")]
 assert not bad, bad
-from reference_seal_backend_tpu_torch.ops.cuda import ntt
-assert ntt._lib is None
+from reference_seal_backend_tpu_torch.ops.cuda import behz, ntt
+assert ntt._lib is None and not behz._libs
 print("CLEAN")
 """
     proc = _run(code)
@@ -118,6 +118,18 @@ def test_cuda_wrapper_neither_builds_on_import_nor_takes_cpu_tensors():
     assert ntt_cuda.launches == before  # a refused call counts no launch
     assert (plan.fwd(x) == 0).all()     # the CPU tensor took the plain version
     assert ntt_cuda.launches == before
+    # the fused BEHZ kernel's wrapper alike
+    from reference_seal_backend_tpu_torch.evaluator import behz
+    from reference_seal_backend_tpu_torch.ops.cuda import behz as behz_cuda
+    from reference_seal_backend_tpu_torch.schemes.params import make_bfv_context
+
+    assert not behz_cuda._libs and behz_cuda.SOURCE.exists()
+    tb = behz.tables_for(make_bfv_context(1024, sec_level=0, device="cpu"))
+    assert not behz_cuda._libs  # tables on the CPU build nothing
+    before = dict(behz_cuda.launches)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        behz_cuda.floor_sk(torch.zeros((3, 10, 1024), dtype=torch.int32), tb)
+    assert behz_cuda.launches == before
 
 
 def test_chip_smoke_fails_without_a_card():
