@@ -24,9 +24,8 @@ The whole multiply is four NTT sweeps, each one call of the plan: the two
 operands' inverse transforms stacked on a leading axis, the forward and
 inverse transforms of the tensor product over q u Bsk on one limb axis
 (``BehzTables.mult_plan``), and the output's forward transform.  Between
-them the arithmetic is plain tensor code in the wide domain of
-``ops/modops.py`` (int64 values in [0, 2**32), masked where a uint32
-would wrap); the tables are kept wide on the device for that reason.  On
+them each step is a chain in the working format of ``ops/modops.py`` (its
+format rule), and the tables are held in that format on the device.  On
 the card, the flat multiply runs steps 4 and 5 and the output's entry into
 Montgomery form as one uint32 kernel (``csrc/behz.cu``), whose oracle these
 functions are; the limb path and the CPU run the functions.
@@ -63,8 +62,8 @@ _HALF_MTILDE = 1 << 15
 
 
 class BehzTables:
-    """Host-precomputed constant tables for one BFV context, as int64
-    tensors (uint32 values) on the context's device.  Names and shapes are
+    """Host-precomputed constant tables for one BFV context, in the working
+    format (``ops/modops.py``) on the context's device.  Names and shapes are
     the reference's: ``[k, 1]`` columns, ``[rows, cols, 1]`` tables, Shoup
     pairs as ``(w, w_shoup)`` tuples, scalars as Python ints."""
 
@@ -142,9 +141,9 @@ class BehzTables:
         self.half_msk = m_sk // 2
 
         w = modops.wide
-        self.q_p = w(ctx.p[:k])
-        self.q_pni = w(ctx.p_neg_inv[:k])
-        self.q_mu = w(ctx.mu[:k])
+        self.q_p = ctx.p[:k]
+        self.q_pni = ctx.p_neg_inv[:k]
+        self.q_mu = ctx.mu[:k]
         # R mod p pairs: enter Montgomery form with one Shoup product
         self.q_r1 = pair(((1 << 32) for _ in q_primes), q_primes)
         self.bsk_p = w(ctx.bsk_plan.p)
@@ -203,32 +202,7 @@ def conv_moduli(tb: BehzTables) -> torch.Tensor:
     return torch.cat([tb.bsk_p, torch.full_like(tb.bsk_p[:1], _MTILDE)], dim=0)
 
 
-# -- wide-domain steps (int64 tensors holding uint32 values) ----------------
-
-def _pairwise_sum(x: torch.Tensor, axis: int, add) -> torch.Tensor:
-    """Reduction tree along ``axis`` in the reference's pairing: the first
-    half plus the second, an odd last term carried, until one is left.  The
-    lazy sums' representatives depend on the pairing, so it is kept."""
-    n = x.shape[axis]
-    while n > 1:
-        half = n // 2
-        s = add(x.narrow(axis, 0, half), x.narrow(axis, half, half))
-        x = torch.cat([s, x.narrow(axis, 2 * half, n - 2 * half)], dim=axis)
-        n = half + (n - 2 * half)
-    return x.squeeze(axis)
-
-
-def _mod_sum_axis(x, p, axis):
-    """Modular sum along ``axis`` of canonical terms (keeps values < p)."""
-    return _pairwise_sum(x, axis, lambda a, b: modops.w_mod_add(a, b, p))
-
-
-def _mod_sum_axis_lazy(x, p, axis):
-    """Sum of lazy [0, 2p) terms along ``axis``; result in [0, 2p).  Valid
-    because every BEHZ prime is < 2**30, so a raw pair-add stays < 4p."""
-    p2 = p + p
-    return _pairwise_sum(x, axis, lambda a, b: modops.w_reduce_2p(a + b, p2))
-
+# -- the steps (working format) ---------------------------------------------
 
 def _canon(x, p):
     """[0, 2p) -> [0, p): one conditional subtract."""
@@ -246,14 +220,14 @@ def _conv_partial(tb: BehzTables, x_q: torch.Tensor, lo: int = 0):
     one; it is never reduced mod a prime)."""
     win = slice(lo, lo + x_q.shape[-2])
     w, ws = tb.mtilde_qhinv
-    y = modops.w_shoup_mul(x_q, w[win], ws[win], tb.q_p[win])
+    y = modops.shoup_mul(x_q, w[win], ws[win], tb.q_p[win])
     # x*_j = sum_i y_i * (qhat_i mod p_j), p_j in Bsk — lazy terms and
     # tree; xs stays in [0, 2p): its only consumer is a Shoup product
     hw, hws = tb.qh_mod_bsk
-    terms = modops.w_shoup_mul_lazy(
+    terms = modops.shoup_mul_lazy(
         y[..., :, None, :], hw[win], hws[win], tb.bsk_p
     )  # [..., r, kb, N]
-    xs = _mod_sum_axis_lazy(terms, tb.bsk_p, axis=-3)
+    xs = modops.mod_sum_lazy(terms, tb.bsk_p, axis=-3)
     # x*_mtilde = sum_i y_i * (qhat_i mod 2^16): only the low 16 bits count
     xt = ((y & _MASK16) * tb.qh_mod_mtilde[win]).sum(dim=-2) & _MASK16
     return xs, xt
@@ -267,12 +241,12 @@ def _conv_finish(tb: BehzTables, xs: torch.Tensor, xt: torch.Tensor) -> torch.Te
     r = (xt * tb.neg_qinv_mtilde) & _MASK16  # = -alpha (mod m_tilde)
     flag = (r > _HALF_MTILDE)[..., None, :]
     r = r[..., None, :]
-    out = modops.w_mod_add(
-        modops.w_shoup_mul(xs, *tb.mtilde_inv_bsk, tb.bsk_p),
-        modops.w_shoup_mul(r, *tb.q_mtilde_inv_bsk, tb.bsk_p),
+    out = modops.mod_add(
+        modops.shoup_mul(xs, *tb.mtilde_inv_bsk, tb.bsk_p),
+        modops.shoup_mul(r, *tb.q_mtilde_inv_bsk, tb.bsk_p),
         tb.bsk_p,
     )
-    return modops.w_mod_sub(out, flag * tb.q_mod_bsk, tb.bsk_p)
+    return modops.mod_sub(out, flag * tb.q_mod_bsk, tb.bsk_p)
 
 
 def _conv_to_bsk_mtilde(tb: BehzTables, x_q: torch.Tensor) -> torch.Tensor:
@@ -287,12 +261,12 @@ def _fbc_partial(tb: BehzTables, x_q: torch.Tensor, pair, lo: int = 0) -> torch.
     is the Shoup constant of the qhat^-1 pre-multiply (``[k, 1]``, cut to
     the window here)."""
     win = slice(lo, lo + x_q.shape[-2])
-    y = modops.w_shoup_mul(x_q, pair[0][win], pair[1][win], tb.q_p[win])
+    y = modops.shoup_mul(x_q, pair[0][win], pair[1][win], tb.q_p[win])
     hw, hws = tb.qh_mod_bsk
-    terms = modops.w_shoup_mul_lazy(
+    terms = modops.shoup_mul_lazy(
         y[..., :, None, :], hw[win], hws[win], tb.bsk_p
     )
-    return _mod_sum_axis_lazy(terms, tb.bsk_p, axis=-3)
+    return modops.mod_sum_lazy(terms, tb.bsk_p, axis=-3)
 
 
 def _fbc_q_to_bsk(tb: BehzTables, x_q: torch.Tensor, pair) -> torch.Tensor:
@@ -316,27 +290,27 @@ def _sk_to_q(tb: BehzTables, y_bsk: torch.Tensor, lo: int = 0,
     y_B = y_bsk[..., :ka, :]
     y_msk = y_bsk[..., ka:, :]
     msk_p = tb.bsk_p[ka:]
-    yp = modops.w_shoup_mul(y_B, *tb.Bh_inv, tb.bsk_p[:ka])
+    yp = modops.shoup_mul(y_B, *tb.Bh_inv, tb.bsk_p[:ka])
     # alpha = (sum_i y'_i * Bhat_i - y) / B recovered mod m_sk, centered
-    terms_msk = modops.w_shoup_mul(yp, *tb.Bh_mod_msk, msk_p)
-    conv_msk = _mod_sum_axis(terms_msk[..., :, None, :], msk_p, axis=-3)
-    alpha = modops.w_shoup_mul(
-        modops.w_mod_sub(conv_msk, y_msk, msk_p), *tb.Binv_msk, msk_p
+    terms_msk = modops.shoup_mul(yp, *tb.Bh_mod_msk, msk_p)
+    conv_msk = modops.mod_sum(terms_msk[..., :, None, :], msk_p, axis=-3)
+    alpha = modops.shoup_mul(
+        modops.mod_sub(conv_msk, y_msk, msk_p), *tb.Binv_msk, msk_p
     )  # [..., 1, N] in [0, m_sk)
     flag = alpha > tb.half_msk
     bw, bws = tb.Bh_mod_q
-    terms_q = modops.w_shoup_mul_lazy(
+    terms_q = modops.shoup_mul_lazy(
         yp[..., :, None, :], bw[:, win], bws[:, win], q_p
     )  # [..., ka, rows, N]
-    s = _canon(_mod_sum_axis_lazy(terms_q, q_p, axis=-3), q_p)
-    alpha_term = modops.w_shoup_mul(
-        modops.w_barrett_reduce_u32(alpha, q_p, tb.q_mu[win]),
+    s = _canon(modops.mod_sum_lazy(terms_q, q_p, axis=-3), q_p)
+    alpha_term = modops.shoup_mul(
+        modops.barrett_reduce_u32(alpha, q_p, tb.q_mu[win]),
         tb.B_mod_q[0][win],
         tb.B_mod_q[1][win],
         q_p,
     )
-    out = modops.w_mod_sub(s, alpha_term, q_p)
-    return modops.w_mod_add(out, flag * tb.msk_B_mod_q[win], q_p)
+    out = modops.mod_sub(s, alpha_term, q_p)
+    return modops.mod_add(out, flag * tb.msk_B_mod_q[win], q_p)
 
 
 def _tensor(x, y, p, pni):
@@ -345,10 +319,10 @@ def _tensor(x, y, p, pni):
     (< 2p) keep mont_mul exact since every prime is < 2**30."""
     x0, x1 = x[..., 0, :, :], x[..., 1, :, :]
     y0, y1 = y[..., 0, :, :], y[..., 1, :, :]
-    c0 = modops.w_mont_mul(x0, y0, p, pni)
-    c2 = modops.w_mont_mul(x1, y1, p, pni)
-    z = modops.w_mont_mul(x0 + x1, y0 + y1, p, pni)
-    c1 = modops.w_mod_sub(modops.w_mod_sub(z, c0, p), c2, p)
+    c0 = modops.mont_mul(x0, y0, p, pni)
+    c2 = modops.mont_mul(x1, y1, p, pni)
+    z = modops.mont_mul(x0 + x1, y0 + y1, p, pni)
+    c1 = modops.mod_sub(modops.mod_sub(z, c0, p), c2, p)
     return torch.stack([c0, c1, c2], dim=-3)
 
 
@@ -361,11 +335,10 @@ def operands(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def to_coeff(ctx: BfvContext, tb: BehzTables, ab: torch.Tensor, lo: int = 0):
     """The operands' q rows ``[lo, lo + r)`` (NTT Montgomery) -> normal
-    coefficients, wide: one inverse transform at ``lo``, ``from_mont``."""
+    coefficients, working format: one inverse transform at ``lo``,
+    ``from_mont``."""
     win = slice(lo, lo + ab.shape[-2])
-    return modops.w_mont_mul(
-        modops.wide(ctx.plan.inv(ab, lo=lo)), 1, tb.q_p[win], tb.q_pni[win]
-    )
+    return modops.mont_mul(ctx.plan.inv(ab, lo=lo), 1, tb.q_p[win], tb.q_pni[win])
 
 
 def tensor_product(tb: BehzTables, ab_q: torch.Tensor, ab_bsk: torch.Tensor,
@@ -379,7 +352,7 @@ def tensor_product(tb: BehzTables, ab_q: torch.Tensor, ab_bsk: torch.Tensor,
     x_all = torch.cat([ab_q, ab_bsk], dim=-2)  # [2ab, ..., 2, r+kb, N]
     # Operand a enters Montgomery form (xR) so that the dyadic Montgomery
     # products land in normal form; operand b stays normal.
-    x_all = torch.cat([modops.w_shoup_mul(x_all[:1], *r1, p), x_all[1:]], dim=0)
+    x_all = torch.cat([modops.shoup_mul(x_all[:1], *r1, p), x_all[1:]], dim=0)
     ntt_all = w(plan.fwd(modops.narrow(x_all), lo=0))
     return plan.inv(modops.narrow(_tensor(ntt_all[0], ntt_all[1], p, pni)), lo=0)
 
@@ -387,9 +360,9 @@ def tensor_product(tb: BehzTables, ab_q: torch.Tensor, ab_bsk: torch.Tensor,
 def floor_bsk(tb: BehzTables, prod_bsk: torch.Tensor, fbc: torch.Tensor):
     """Step 4: scale by t and floor-divide by q in Bsk, given the
     canonical fast base conversion ``fbc`` of the q-side product (times t)."""
-    tc_bsk = modops.w_shoup_mul(prod_bsk, *tb.t_mod_bsk, tb.bsk_p)
-    return modops.w_shoup_mul(
-        modops.w_mod_sub(tc_bsk, fbc, tb.bsk_p), *tb.qinv_bsk, tb.bsk_p
+    tc_bsk = modops.shoup_mul(prod_bsk, *tb.t_mod_bsk, tb.bsk_p)
+    return modops.shoup_mul(
+        modops.mod_sub(tc_bsk, fbc, tb.bsk_p), *tb.qinv_bsk, tb.bsk_p
     )
 
 
@@ -397,7 +370,7 @@ def to_ntt(ctx: BfvContext, tb: BehzTables, out_q: torch.Tensor, lo: int = 0):
     """The output's q rows ``[lo, lo + r)`` back to the at-rest NTT
     Montgomery form: the Montgomery entry and one forward transform."""
     win = slice(lo, lo + out_q.shape[-2])
-    return ctx.plan.fwd(modops.narrow(modops.w_shoup_mul(
+    return ctx.plan.fwd(modops.narrow(modops.shoup_mul(
         out_q, tb.q_r1[0][win], tb.q_r1[1][win], tb.q_p[win])), lo=lo)
 
 
@@ -409,7 +382,7 @@ def floor_sk_plain(tb: BehzTables, prod: torch.Tensor) -> torch.Tensor:
     output's forward sweep's input.  The kernel's oracle."""
     k, w = tb.ctx.L, modops.wide(prod)
     y = floor_bsk(tb, w[..., k:, :], _fbc_q_to_bsk(tb, w[..., :k, :], tb.t_qhinv))
-    return modops.narrow(modops.w_shoup_mul(_sk_to_q(tb, y), *tb.q_r1, tb.q_p))
+    return modops.narrow(modops.shoup_mul(_sk_to_q(tb, y), *tb.q_r1, tb.q_p))
 
 
 def bfv_multiply(ctx: BfvContext, a: Ciphertext, b: Ciphertext) -> Ciphertext:

@@ -20,7 +20,10 @@ switching over the special modulus P = prod(special_primes), with optional
     moddown  divide-and-round by P back to the live limbs
 
 The NTTs go through ``ctx.plan`` (the CUDA kernel on the card); everything
-between them is tensor arithmetic from ops/modops.py.  The BFV ct-ct
+between them is a chain in the working format of ops/modops.py, narrowed
+once where it stores (its format rule): before a transform, and into the
+returned ciphertext.  The helpers that ``parallel/limb.py`` calls block by
+block return the working format.  The BFV ct-ct
 multiply is the BEHZ pipeline of evaluator/behz.py; every other operation
 is shared by both schemes (BFV never rescales).
 """
@@ -85,22 +88,19 @@ class Evaluator:
         _check_binop(a, b)
         p = self.ctx.p[: a.level]
         if a.size == b.size:
-            data = modops.mod_add(a.data, b.data, p)
-        else:
-            big, small = (a, b) if a.size > b.size else (b, a)
-            head = modops.mod_add(
-                big.data[..., : small.size, :, :], small.data, p
-            )
-            data = torch.cat(
-                [head, big.data[..., small.size :, :, :]], dim=-3
-            )
+            return replace(a, data=modops.narrow(modops.mod_add(a.data, b.data, p)))
+        big, small = (a, b) if a.size > b.size else (b, a)
+        head = modops.mod_add(big.data[..., : small.size, :, :], small.data, p)
+        data = torch.cat(
+            [modops.narrow(head), big.data[..., small.size :, :, :]], dim=-3
+        )
         return replace(a, data=data)
 
     def sub(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
         _check_binop(a, b)
         p = self.ctx.p[: a.level]
         if a.size == b.size:
-            return replace(a, data=modops.mod_sub(a.data, b.data, p))
+            return replace(a, data=modops.narrow(modops.mod_sub(a.data, b.data, p)))
         # Mismatched sizes (e.g. size-3 pre-relin minus size-2): subtract
         # the common head componentwise; a's surplus tail passes through,
         # b's surplus tail is negated (a - b on the missing components).
@@ -111,11 +111,13 @@ class Evaluator:
         if a.size > b.size:
             tail = a.data[..., k:, :, :]
         else:
-            tail = modops.mod_neg(b.data[..., k:, :, :], p)
-        return replace(a, data=torch.cat([head, tail], dim=-3))
+            tail = modops.narrow(modops.mod_neg(b.data[..., k:, :, :], p))
+        return replace(a, data=torch.cat([modops.narrow(head), tail], dim=-3))
 
     def negate(self, a: Ciphertext) -> Ciphertext:
-        return replace(a, data=modops.mod_neg(a.data, self.ctx.p[: a.level]))
+        return replace(
+            a, data=modops.narrow(modops.mod_neg(a.data, self.ctx.p[: a.level]))
+        )
 
     def _plain_term(self, pt: Plaintext, level: int) -> torch.Tensor:
         """What ``add_plain`` / ``sub_plain`` add to c0: the plaintext
@@ -140,7 +142,7 @@ class Evaluator:
             a.data[..., 0, :, :], self._plain_term(pt, a.level), p
         )
         data = torch.cat(
-            [c0[..., None, :, :], a.data[..., 1:, :, :]], dim=-3
+            [modops.narrow(c0)[..., None, :, :], a.data[..., 1:, :, :]], dim=-3
         )
         return replace(a, data=data)
 
@@ -150,7 +152,7 @@ class Evaluator:
             a.data[..., 0, :, :], self._plain_term(pt, a.level), p
         )
         data = torch.cat(
-            [c0[..., None, :, :], a.data[..., 1:, :, :]], dim=-3
+            [modops.narrow(c0)[..., None, :, :], a.data[..., 1:, :, :]], dim=-3
         )
         return replace(a, data=data)
 
@@ -161,7 +163,7 @@ class Evaluator:
             raise ValueError("plaintext level mismatch")
         l = a.level
         p, pni = self.ctx.consts(0, l)
-        data = modops.mont_mul(a.data, pt.data, p, pni)
+        data = modops.narrow(modops.mont_mul(a.data, pt.data, p, pni))
         return replace(a, data=data, scale=a.scale * pt.scale)
 
     def multiply(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
@@ -179,8 +181,9 @@ class Evaluator:
             return behz.bfv_multiply(self.ctx, a, b)
         l = a.level
         p, pni = self.ctx.consts(0, l)
-        a0, a1 = a.data[..., 0, :, :], a.data[..., 1, :, :]
-        b0, b1 = b.data[..., 0, :, :], b.data[..., 1, :, :]
+        ad, bd = modops.wide(a.data), modops.wide(b.data)
+        a0, a1 = ad[..., 0, :, :], ad[..., 1, :, :]
+        b0, b1 = bd[..., 0, :, :], bd[..., 1, :, :]
         # Karatsuba: 3 Montgomery products instead of 4 — the cross term is
         # (a0+a1)(b0+b1) - c0 - c2.
         c0 = modops.mont_mul(a0, b0, p, pni)
@@ -198,7 +201,7 @@ class Evaluator:
                 modops.mod_add(a0, a1, p), modops.mod_add(b0, b1, p), p, pni
             )
         cross = modops.mod_sub(modops.mod_sub(z, c0, p), c2, p)
-        data = torch.stack([c0, cross, c2], dim=-3)
+        data = modops.narrow(torch.stack([c0, cross, c2], dim=-3))
         return replace(a, data=data, scale=a.scale * b.scale)
 
     def square(self, a: Ciphertext) -> Ciphertext:
@@ -234,7 +237,8 @@ class Evaluator:
 
     def _lazy(self) -> bool:
         """:func:`_lazy_ok` for this evaluator's context (what
-        ``parallel/limb.py``'s all-reduce keeps its sums in)."""
+        ``parallel/limb.py``'s all-reduce and ``parallel/sp_eval.py``'s
+        chains keep their sums in)."""
         return _lazy_ok(self.ctx)
 
     def key_switch(
@@ -275,13 +279,15 @@ class Evaluator:
         # (shoup_mul_lazy is exact for the [0, 4p) digits), sum stays
         # lazy, and the mod-down consumes [0, 2p) directly (its iNTT is
         # Harvey-tolerant, its Shoup multiplies exact).
+        dig = modops.wide(dig)
         if _lazy_ok(self.ctx):
             tb = modops.shoup_mul_lazy(dig, key_b, key_bs, p_t)
             ta = modops.shoup_mul_lazy(dig, key_a, key_as, p_t)
-            return _mod_sum_lazy(tb, p_t, axis=-3), _mod_sum_lazy(ta, p_t, axis=-3)
+            return (modops.mod_sum_lazy(tb, p_t, axis=-3),
+                    modops.mod_sum_lazy(ta, p_t, axis=-3))
         tb = modops.shoup_mul(dig, key_b, key_bs, p_t)
         ta = modops.shoup_mul(dig, key_a, key_as, p_t)
-        return _mod_sum(tb, p_t, axis=-3), _mod_sum(ta, p_t, axis=-3)
+        return modops.mod_sum(tb, p_t, axis=-3), modops.mod_sum(ta, p_t, axis=-3)
 
     def _hoisted_digits(self, d: torch.Tensor, level: int) -> torch.Tensor:
         """Steps 1-3 of key switching for ``d`` [..., l, N] NTT Montgomery:
@@ -378,6 +384,7 @@ class Evaluator:
         # 3) forward NTT per target modulus (normal form stays normal).
         # Lazy path: skip the canonical epilogue — the inner product's
         # shoup_mul is exact for digits in [0, 4p).
+        lifted = modops.narrow(lifted)
         data_part = ctx.plan.fwd(lifted[..., :l, :], lo=0, epilogue=not lazy)
         sp_part = ctx.plan.fwd(
             lifted[..., l:, :], lo=ctx.sp_row, epilogue=not lazy
@@ -412,7 +419,7 @@ class Evaluator:
             return self._peel_special(x, l, 0, live)
         ihat, W, Ws, invP, invPs, invPm, invPms = ctx.moddown_tables(l)
         sp = ctx.sp_row
-        v_mont = ctx.plan.inv(x[..., l:, :], lo=sp)  # [..., ns, N]
+        v_mont = ctx.plan.inv(modops.narrow(x[..., l:, :]), lo=sp)  # [..., ns, N]
         y = modops.mont_mul(
             v_mont, ihat, ctx.p[sp:], ctx.p_neg_inv[sp:]
         )  # [..., ns, N] normal: y_s = v_s·(P/p_s)^{-1} mod p_s
@@ -428,7 +435,7 @@ class Evaluator:
             u = modops.mod_add(u, contrib[..., s, :, :], p_l)
         # u_ntt only feeds the fully-reducing shoup_mul below (exact for
         # any uint32), so the lazy NTT's canonical epilogue is skippable.
-        u_ntt = ctx.plan.fwd(u, lo=lo, epilogue=not _lazy_ok(ctx))
+        u_ntt = ctx.plan.fwd(modops.narrow(u), lo=lo, epilogue=not _lazy_ok(ctx))
         return modops.mod_sub(
             modops.shoup_mul(x[..., live, :], invP[live], invPs[live], p_l),
             modops.shoup_mul(u_ntt, invPm[live], invPms[live], p_l),
@@ -444,7 +451,7 @@ class Evaluator:
         ctx = self.ctx
         dr = ctx.L + j  # context row of the divisor prime
         k = l + j       # its row index within x
-        v_mont = ctx.plan.inv(x[..., k : k + 1, :], lo=dr)
+        v_mont = ctx.plan.inv(modops.narrow(x[..., k : k + 1, :]), lo=dr)
         v = modops.from_mont(
             v_mont, ctx.p[dr : dr + 1], ctx.p_neg_inv[dr : dr + 1]
         )  # [..., 1, N] in [0, p_dr)
@@ -482,14 +489,15 @@ class Evaluator:
         epi = not _lazy_ok(ctx)
         out = combine(
             x[..., live, :],
-            ctx.plan.fwd(lift(live), lo=live.start, epilogue=epi),
+            ctx.plan.fwd(modops.narrow(lift(live)), lo=live.start, epilogue=epi),
             live,
         )
         if j == 0:
             return out
         sps = slice(ctx.L, dr)  # remaining special rows 0..j-1
         out_sp = combine(
-            x[..., l:k, :], ctx.plan.fwd(lift(sps), lo=ctx.L, epilogue=epi),
+            x[..., l:k, :],
+            ctx.plan.fwd(modops.narrow(lift(sps)), lo=ctx.L, epilogue=epi),
             sps,
         )
         return torch.cat([out, out_sp], dim=-2)
@@ -508,7 +516,7 @@ class Evaluator:
             kb, ka = self.key_switch(a.data[..., 2, :, :], self.keys.relin, l)
             c0 = modops.mod_add(a.data[..., 0, :, :], kb, p)
             c1 = modops.mod_add(a.data[..., 1, :, :], ka, p)
-            return replace(a, data=torch.stack([c0, c1], dim=-3))
+            return replace(a, data=modops.narrow(torch.stack([c0, c1], dim=-3)))
 
     # -- level / scale management ------------------------------------------
 
@@ -522,7 +530,7 @@ class Evaluator:
         """The dropped prime's row [..., 1, N] (NTT Montgomery) in
         coefficient form, normal, in [0, p_drop)."""
         ctx = self.ctx
-        v_mont = ctx.plan.inv(row, lo=drop)
+        v_mont = ctx.plan.inv(modops.narrow(row), lo=drop)
         return modops.from_mont(
             v_mont, ctx.p[drop : drop + 1], ctx.p_neg_inv[drop : drop + 1]
         )
@@ -544,7 +552,7 @@ class Evaluator:
         )
         # w_ntt only feeds the fully-reducing shoup_mul below (exact for
         # any uint32) — skip the lazy NTT's canonical epilogue.
-        w_ntt = ctx.plan.fwd(w, lo=lo, epilogue=not _lazy_ok(ctx))
+        w_ntt = ctx.plan.fwd(modops.narrow(w), lo=lo, epilogue=not _lazy_ok(ctx))
         sel = lambda t: t[drop, rows][:, None]
         return modops.mod_sub(
             modops.shoup_mul(
@@ -575,13 +583,14 @@ class Evaluator:
         for i in range(group):
             scale /= ctx.data_primes[l - 1 - i]
         if isinstance(a.data, ShardedTensor):
-            return replace(a, data=limb.rescale(self, a.data, l, group),
-                           level=l - group, scale=scale)
-        data = a.data
-        for _ in range(group):
-            data = self._drop_one_scaled(data, l)
-            l -= 1
-        return replace(a, data=data, level=l, scale=scale)
+            data = limb.rescale(self, a.data, l, group)
+            l -= group
+        else:
+            data = a.data
+            for _ in range(group):
+                data = self._drop_one_scaled(data, l)
+                l -= 1
+        return replace(a, data=modops.narrow(data), level=l, scale=scale)
 
     def _drop_rows(self, data: torch.Tensor, level: int) -> torch.Tensor:
         """The first ``level`` limbs of ``data`` [..., l, N] (on a mesh:
@@ -637,7 +646,7 @@ class Evaluator:
             permuted[..., 1, :, :], self.keys.galois[g], l
         )
         c0 = modops.mod_add(permuted[..., 0, :, :], kb, p)
-        return replace(a, data=torch.stack([c0, ka], dim=-3))
+        return replace(a, data=modops.narrow(torch.stack([c0, ka], dim=-3)))
 
     def rotate(self, a: Ciphertext, steps: int) -> Ciphertext:
         """Rotate slot vector left by ``steps`` (CKKS rotate_vector /
@@ -738,7 +747,7 @@ class Evaluator:
             out = a.data
             for _ in range(n_id - 1):
                 out = modops.mod_add(out, a.data, p)
-            return replace(a, data=out)
+            return replace(a, data=modops.narrow(out))
         for s in nonzero:
             g = pow(5, s, 2 * n)
             if self.keys is None or g not in self.keys.galois:
@@ -763,7 +772,7 @@ class Evaluator:
         r)`` and the lifted digits ``dig`` of :meth:`_lift_digits` ``(lo,
         r)``: the key-switch accumulator of every rotation summed
         [..., 2 (b, a), l+ns, N] and the rotated c0s summed [..., r, N],
-        both in storage order."""
+        both in storage order, in the working format."""
         ctx = self.ctx
         n = ctx.n
         rows = slice(lo, lo + c0.shape[-2])
@@ -773,7 +782,7 @@ class Evaluator:
         _, P_dev, Q_dev = self._p5_tables()
         # ONE gather into p5 order for the shared digits and c0; every
         # per-rotation φ_g is then a roll (see _p5_tables).
-        dig = torch.index_select(dig, -1, P_dev)
+        dig = modops.wide(torch.index_select(dig, -1, P_dev))
         c0_p5 = torch.index_select(c0, -1, P_dev)
         digits = self._digit_range(lo, c0.shape[-2])
         cat2 = lambda k: self._cat_key(k, l, digits)
@@ -790,7 +799,7 @@ class Evaluator:
                 terms = modops.shoup_mul_lazy(
                     dig[..., None, :, :, :], pair_w, pair_s, p_t
                 )  # [..., 2, nd, l+ns, N]
-                acc_g = _mod_sum_lazy(terms, p_t, axis=-3)
+                acc_g = modops.mod_sum_lazy(terms, p_t, axis=-3)
                 acc_g = self._roll_p5(acc_g, s)           # apply φ_g
                 acc = (
                     acc_g
@@ -801,7 +810,7 @@ class Evaluator:
                 terms = modops.shoup_mul(
                     dig[..., None, :, :, :], pair_w, pair_s, p_t
                 )  # [..., 2, nd, l+ns, N]
-                acc_g = _mod_sum(terms, p_t, axis=-3)     # [..., 2, l+ns, N]
+                acc_g = modops.mod_sum(terms, p_t, axis=-3)  # [..., 2, l+ns, N]
                 acc_g = self._roll_p5(acc_g, s)           # apply φ_g
                 acc = (
                     acc_g
@@ -811,7 +820,7 @@ class Evaluator:
             c0_parts.append(self._roll_p5(c0_p5, s))
         acc = torch.index_select(acc, -1, Q_dev)          # back to storage
         c0_rot = torch.index_select(
-            _mod_sum(torch.stack(c0_parts), ctx.p[rows], axis=0), -1, Q_dev
+            modops.mod_sum(torch.stack(c0_parts), ctx.p[rows], axis=0), -1, Q_dev
         )
         return acc, c0_rot
 
@@ -821,7 +830,8 @@ class Evaluator:
     ) -> torch.Tensor:
         """:meth:`rotate_sum` from its mod-down on, for the rows ``[lo, lo
         + r)`` of ``data`` [..., 2, r, N]: one mod-down of ``acc`` shared by
-        every rotation, plus the identity steps.  Returns [..., 2, r, N]."""
+        every rotation, plus the identity steps.  Returns [..., 2, r, N],
+        narrowed: the rotated ciphertext's data."""
         r = data.shape[-2]
         p = self.ctx.p[lo : lo + r]
         kba = self._mod_down_special(acc, l, lo, r)       # [..., 2, r, N]
@@ -830,46 +840,7 @@ class Evaluator:
         for _ in range(n_id):
             c0 = modops.mod_add(c0, data[..., 0, :, :], p)
             c1 = modops.mod_add(c1, data[..., 1, :, :], p)
-        return torch.stack([c0, c1], dim=-3)
-
-
-def _mod_sum(x: torch.Tensor, p: torch.Tensor, axis: int) -> torch.Tensor:
-    """Modular reduction-tree sum along ``axis`` (pairwise, log depth)."""
-    n = x.shape[axis]
-    idx = lambda s: tuple(
-        s if d == axis % x.ndim else slice(None) for d in range(x.ndim)
-    )
-    while n > 1:
-        half = n // 2
-        a = x[idx(slice(0, half))]
-        b = x[idx(slice(half, 2 * half))]
-        rest = x[idx(slice(2 * half, n))]
-        x = torch.cat([modops.mod_add(a, b, p), rest], dim=axis)
-        n = half + (n - 2 * half)
-    return torch.squeeze(x, dim=axis)
-
-
-def _mod_sum_lazy(x: torch.Tensor, p: torch.Tensor, axis: int) -> torch.Tensor:
-    """Reduction-tree sum of LAZY terms in [0, 2p) along ``axis``; the
-    result stays in [0, 2p).  Each tree level is a raw add (< 4p, fits
-    uint32 for p < 2**30) plus one conditional 2p-subtract — one op
-    cheaper per pair than the canonical :func:`_mod_sum`, and the terms
-    themselves come from shoup_mul_lazy (4 ops cheaper each)."""
-    p2 = modops.add_raw(p, p)
-    n = x.shape[axis]
-    idx = lambda s: tuple(
-        s if d == axis % x.ndim else slice(None) for d in range(x.ndim)
-    )
-    while n > 1:
-        half = n // 2
-        a = x[idx(slice(0, half))]
-        b = x[idx(slice(half, 2 * half))]
-        rest = x[idx(slice(2 * half, n))]
-        x = torch.cat(
-            [modops.reduce_2p(modops.add_raw(a, b), p2), rest], dim=axis
-        )
-        n = half + (n - 2 * half)
-    return torch.squeeze(x, dim=axis)
+        return modops.narrow(torch.stack([c0, c1], dim=-3))
 
 
 def rotation_galois_elt(n: int, steps: int) -> int:

@@ -56,7 +56,7 @@ from reference_seal_backend_tpu_torch.schemes.params import (
     make_bfv_context,
     make_ckks_context,
 )
-from reference_seal_backend_tpu_torch.utils import staging
+from reference_seal_backend_tpu_torch.utils import counters, staging
 from reference_seal_backend_tpu_torch.utils.device import mesh_devices, pick_device
 
 CKKS_EPS = 5e-5  # decode clamp, reference convention
@@ -281,9 +281,17 @@ class HEBenchmark(abc.ABC):
         payload = _map_payload(place, encrypted.payload)
         return Handle(tag=encrypted.tag, payload=payload, meta=encrypted.meta)
 
-    @abc.abstractmethod
     def operate(self, loaded: Handle) -> Handle:
-        """The timed homomorphic computation."""
+        """The timed homomorphic computation: the handle checked and the
+        call counted (``("operate",)``, utils/counters.py) here, once for
+        every workload, then the workload's :meth:`_operate`."""
+        self.check_handle(loaded, "ct")
+        counters.note("operate")
+        return self._operate(loaded)
+
+    @abc.abstractmethod
+    def _operate(self, loaded: Handle) -> Handle:
+        """The workload's own ``operate`` on a checked handle."""
 
     def store(self, result: Handle) -> Handle:
         """Device -> host readback of result arrays."""

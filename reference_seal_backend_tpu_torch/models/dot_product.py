@@ -17,7 +17,6 @@ import numpy as np
 from reference_seal_backend_tpu_torch.engine.descriptor import BenchmarkDescriptor
 from reference_seal_backend_tpu_torch.evaluator import composite
 from reference_seal_backend_tpu_torch.models.base import Handle, HEBenchmark
-from reference_seal_backend_tpu_torch.utils import counters
 
 
 class DotProductBenchmark(HEBenchmark):
@@ -62,9 +61,7 @@ class DotProductBenchmark(HEBenchmark):
             prod = self.ev.rescale_to_next(prod)
         return composite.accumulate(self.ev, prod, self.n)
 
-    def operate(self, loaded: Handle) -> Handle:
-        self.check_handle(loaded, "ct")
-        counters.note("operate")
+    def _operate(self, loaded: Handle) -> Handle:
         a, b = loaded.payload
         out = self._op_graph(a, b)
         return Handle(

@@ -22,7 +22,6 @@ from reference_seal_backend_tpu_torch.engine.descriptor import (
     Workload,
 )
 from reference_seal_backend_tpu_torch.models.base import Handle, HEBenchmark
-from reference_seal_backend_tpu_torch.utils import counters
 
 
 class ElementWiseBenchmark(HEBenchmark):
@@ -60,9 +59,7 @@ class ElementWiseBenchmark(HEBenchmark):
             return self.ev.add(a2, b2)
         return self.ev.multiply(a2, b2)
 
-    def operate(self, loaded: Handle) -> Handle:
-        self.check_handle(loaded, "ct")
-        counters.note("operate")
+    def _operate(self, loaded: Handle) -> Handle:
         a, b = loaded.payload
         out = self._op_graph(a, b)
         return Handle(

@@ -27,7 +27,6 @@ import torch
 from reference_seal_backend_tpu_torch.engine.descriptor import BenchmarkDescriptor
 from reference_seal_backend_tpu_torch.evaluator import composite
 from reference_seal_backend_tpu_torch.models.base import Handle, HEBenchmark
-from reference_seal_backend_tpu_torch.utils import counters
 
 SIGMOID_D3 = (0.5, 0.15012, 0.0, -0.0015930078125)
 # The batch behind the FLEXIBLE (0) registration of the Offline descriptor.
@@ -130,9 +129,7 @@ class LogRegBenchmark(HEBenchmark):
         return {**super().run_notes(loaded),
                 "dots_chunk": chunk, "dots_n_chunks": n_chunks}
 
-    def operate(self, loaded: Handle) -> Handle:
-        self.check_handle(loaded, "ct")
-        counters.note("operate")
+    def _operate(self, loaded: Handle) -> Handle:
         w, b, x = loaded.payload
         batch = x.data.shape[0]
         chunk, n_chunks = self.dots_chunks(batch)

@@ -35,9 +35,8 @@ import numpy as np
 
 from reference_seal_backend_tpu_torch.engine.descriptor import BenchmarkDescriptor
 from reference_seal_backend_tpu_torch.evaluator import composite
-from reference_seal_backend_tpu_torch.evaluator.eval import _mod_sum
 from reference_seal_backend_tpu_torch.models.base import Handle, HEBenchmark
-from reference_seal_backend_tpu_torch.utils import counters
+from reference_seal_backend_tpu_torch.ops import modops
 
 
 class _MatMultBase(HEBenchmark):
@@ -56,9 +55,7 @@ class _MatMultBase(HEBenchmark):
         cts = tuple(self.encrypt_batch(pt) for pt in encoded.payload)
         return self.handle("ct", cts)
 
-    def operate(self, loaded: Handle) -> Handle:
-        self.check_handle(loaded, "ct")
-        counters.note("operate")
+    def _operate(self, loaded: Handle) -> Handle:
         m0, m1 = loaded.payload
         out = self._op_graph(m0, m1)
         return self.handle("result", out, meta=loaded.meta)
@@ -136,9 +133,8 @@ class MatMultCipherBatchAxisBenchmark(_MatMultBase):
         prod = self.ev.multiply(a, b)               # size-3, [r0, c0, c1, …]
         # ciphertext-space accumulation over the inner dimension, then one
         # batched relinearize (+ rescale) per output.
-        summed = replace(
-            prod, data=_mod_sum(prod.data, self.ctx.p[: prod.level], axis=1)
-        )
+        summed = replace(prod, data=modops.narrow(
+            modops.mod_sum(prod.data, self.ctx.p[: prod.level], axis=1)))
         out = self.ev.relinearize(summed)
         if self.is_ckks:
             out = self.ev.rescale_to_next(out)

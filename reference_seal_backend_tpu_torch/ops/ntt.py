@@ -2,8 +2,11 @@
 PyTorch version.
 
 Counterpart of ``reference_seal_backend_tpu/ops/ntt.py``.  Layout: residue
-polynomials are int32-stored uint32 ``[..., L, N]`` (ops/modops.py),
-limb-major; the transform is Montgomery/normal-form agnostic.  Twiddle
+polynomials ``[..., L, N]``, limb-major; the transform is
+Montgomery/normal-form agnostic.  A transform is a store in the format rule
+of ``ops/modops.py``: :meth:`NttPlan.fwd` / :meth:`NttPlan.inv` take and
+return storage (and refuse anything else, on the CPU as the kernel does);
+the plain versions compute in the working format between.  Twiddle
 multiplies use Shoup's precomputed-constant trick with ``(w, w_shoup)``
 tables built host side per (prime, N).
 
@@ -205,6 +208,7 @@ class NttPlan:
         ``y[..., a:b, :]`` of a contiguous tensor goes to the kernel as it
         is (``ops/cuda/ntt.py`` says which views it takes); the result is a
         new contiguous tensor."""
+        modops.check_store(x)
         if call_log is not None:
             _note(self, "ntt_fwd", x, lo, epilogue)
         if x.is_cuda:
@@ -216,6 +220,7 @@ class NttPlan:
 
     def inv(self, x: torch.Tensor, lo: int = 0):
         """Inverse negacyclic NTT (exact inverse of :meth:`fwd`)."""
+        modops.check_store(x)
         if call_log is not None:
             _note(self, "ntt_inv", x, lo, None)
         if x.is_cuda:
@@ -248,16 +253,16 @@ class NttPlan:
             v = xv[..., 1, :]
             w, ws = self._stage_tables(self.roots, self.roots_shoup, lo, nl, m)
             if self.lazy:
-                ur = u if s == 0 else modops.w_reduce_2p(u, p2)
-                tt = modops.w_shoup_mul_lazy(v, w, ws, p)
+                ur = u if s == 0 else modops.reduce_2p(u, p2)
+                tt = modops.shoup_mul_lazy(v, w, ws, p)
                 a, b = ur + tt, ur - tt + p2
             else:
-                tt = modops.w_shoup_mul(v, w, ws, p)
-                a, b = modops.w_mod_add(u, tt, p), modops.w_mod_sub(u, tt, p)
+                tt = modops.shoup_mul(v, w, ws, p)
+                a, b = modops.mod_add(u, tt, p), modops.mod_sub(u, tt, p)
             xw = torch.stack([a, b], dim=-2).reshape(*lead, n)
             m, t = m * 2, t // 2
         if self.lazy and epilogue:
-            xw = modops.w_reduce_4p_full(xw, pl)
+            xw = modops.reduce_4p_full(xw, pl)
         return modops.narrow(xw)
 
     def inv_plain(self, x: torch.Tensor, lo: int = 0):
@@ -275,17 +280,17 @@ class NttPlan:
             v = xv[..., 1, :]
             w, ws = self._stage_tables(self.iroots, self.iroots_shoup, lo, nl, m)
             if self.lazy:
-                a = modops.w_reduce_2p(u + v, p2)
-                b = modops.w_shoup_mul_lazy(u - v + p2, w, ws, p)
+                a = modops.reduce_2p(u + v, p2)
+                b = modops.shoup_mul_lazy(u - v + p2, w, ws, p)
             else:
-                a = modops.w_mod_add(u, v, p)
-                b = modops.w_shoup_mul(modops.w_mod_sub(u, v, p), w, ws, p)
+                a = modops.mod_add(u, v, p)
+                b = modops.shoup_mul(modops.mod_sub(u, v, p), w, ws, p)
             xw = torch.stack([a, b], dim=-2).reshape(*lead, n)
             m, t = m // 2, t * 2
         # fully-reducing shoup_mul (exact for any uint32 input) restores
         # canonical form, so the lazy path needs no extra epilogue here.
         return modops.narrow(
-            modops.w_shoup_mul(
+            modops.shoup_mul(
                 xw,
                 modops.wide(self.n_inv[lo : lo + nl]),
                 modops.wide(self.n_inv_shoup[lo : lo + nl]),
@@ -324,17 +329,17 @@ class NttPlan:
                 wr = w[..., (1 << r) : (2 << r), None]
                 wsr = ws[..., (1 << r) : (2 << r), None]
                 if self.lazy:
-                    ur = u if s0 + r == 0 else modops.w_reduce_2p(u, p2)
-                    tt = modops.w_shoup_mul_lazy(v, wr, wsr, p)
+                    ur = u if s0 + r == 0 else modops.reduce_2p(u, p2)
+                    tt = modops.shoup_mul_lazy(v, wr, wsr, p)
                     hi, lo_ = ur + tt, ur - tt + p2
                 else:
-                    tt = modops.w_shoup_mul(v, wr, wsr, p)
-                    hi, lo_ = modops.w_mod_add(u, tt, p), modops.w_mod_sub(u, tt, p)
+                    tt = modops.shoup_mul(v, wr, wsr, p)
+                    hi, lo_ = modops.mod_add(u, tt, p), modops.mod_sub(u, tt, p)
                 a = torch.stack([hi, lo_], dim=-2).reshape(a.shape)
             xw = torch.empty_like(xw)
             xw[..., elem] = a
         if self.lazy and epilogue:
-            xw = modops.w_reduce_4p_full(xw, pl)
+            xw = modops.reduce_4p_full(xw, pl)
         return modops.narrow(xw)
 
     def inv_blocked_plain(self, x: torch.Tensor, lo: int = 0):
@@ -355,16 +360,16 @@ class NttPlan:
                 wr = w[..., (1 << r) : (2 << r), None]
                 wsr = ws[..., (1 << r) : (2 << r), None]
                 if self.lazy:
-                    hi = modops.w_reduce_2p(u + v, p2)
-                    lo_ = modops.w_shoup_mul_lazy(u - v + p2, wr, wsr, p)
+                    hi = modops.reduce_2p(u + v, p2)
+                    lo_ = modops.shoup_mul_lazy(u - v + p2, wr, wsr, p)
                 else:
-                    hi = modops.w_mod_add(u, v, p)
-                    lo_ = modops.w_shoup_mul(modops.w_mod_sub(u, v, p), wr, wsr, p)
+                    hi = modops.mod_add(u, v, p)
+                    lo_ = modops.shoup_mul(modops.mod_sub(u, v, p), wr, wsr, p)
                 a = torch.stack([hi, lo_], dim=-2).reshape(a.shape)
             xw = torch.empty_like(xw)
             xw[..., elem] = a
         return modops.narrow(
-            modops.w_shoup_mul(
+            modops.shoup_mul(
                 xw,
                 modops.wide(self.n_inv[lo : lo + nl]),
                 modops.wide(self.n_inv_shoup[lo : lo + nl]),
@@ -462,11 +467,11 @@ def _bf_ct(u, v, w, ws, p, lazy: bool, first: bool):
     form (every prime < 2**30) rides ``[0, 4p)`` as in :meth:`NttPlan.fwd_plain`."""
     if lazy:
         p2 = p + p
-        ur = u if first else modops.w_reduce_2p(u, p2)
-        t = modops.w_shoup_mul_lazy(v, w, ws, p)
+        ur = u if first else modops.reduce_2p(u, p2)
+        t = modops.shoup_mul_lazy(v, w, ws, p)
         return ur + t, ur - t + p2
-    t = modops.w_shoup_mul(v, w, ws, p)
-    return modops.w_mod_add(u, t, p), modops.w_mod_sub(u, t, p)
+    t = modops.shoup_mul(v, w, ws, p)
+    return modops.mod_add(u, t, p), modops.mod_sub(u, t, p)
 
 
 def _bf_gs(u, v, w, ws, p, lazy: bool):
@@ -474,12 +479,12 @@ def _bf_gs(u, v, w, ws, p, lazy: bool):
     if lazy:
         p2 = p + p
         return (
-            modops.w_reduce_2p(u + v, p2),
-            modops.w_shoup_mul_lazy(u - v + p2, w, ws, p),
+            modops.reduce_2p(u + v, p2),
+            modops.shoup_mul_lazy(u - v + p2, w, ws, p),
         )
     return (
-        modops.w_mod_add(u, v, p),
-        modops.w_shoup_mul(modops.w_mod_sub(u, v, p), w, ws, p),
+        modops.mod_add(u, v, p),
+        modops.shoup_mul(modops.mod_sub(u, v, p), w, ws, p),
     )
 
 
@@ -533,13 +538,13 @@ def scale_n_inv(plan: "NttPlan", x: torch.Tensor, lo: int) -> torch.Tensor:
     nl = x.shape[-3]
     tw = plan.four_step(x.device)
     col = lambda t: _limb_col(t, lo, nl, 1)
-    return modops.w_shoup_mul(x, col(tw.n_inv[0]), col(tw.n_inv[1]), col(tw.p))
+    return modops.shoup_mul(x, col(tw.n_inv[0]), col(tw.n_inv[1]), col(tw.p))
 
 
 def reduce_epilogue(plan: "NttPlan", xt: torch.Tensor, lo: int) -> torch.Tensor:
     """The lazy forward transform's canonicalising epilogue on wide
     ``[..., l, a, b]``: ``[0, 4p) -> [0, p)``."""
-    return modops.w_reduce_4p_full(
+    return modops.reduce_4p_full(
         xt, _limb_col(plan.four_step(xt.device).p, lo, xt.shape[-3], 1))
 
 

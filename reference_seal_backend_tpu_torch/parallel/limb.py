@@ -302,7 +302,7 @@ def bfv_multiply(ev, a: Ciphertext, b: Ciphertext) -> Ciphertext:
     prod_bsk = _new_blocks(x)
     for c in coords:
         ctx, tb, lo = tables(c)
-        s = modops.wide(conv[c])
+        s = conv[c]  # the all-reduce's sums, in the working format
         ab_bsk = behz._conv_finish(tb, s[..., :kb, :], s[..., kb, :])
         prod = modops.wide(behz.tensor_product(tb, ab_q[c], ab_bsk, lo))
         prod_q, prod_bsk[c] = prod[..., :rows, :], prod[..., rows:, :]
@@ -311,6 +311,6 @@ def bfv_multiply(ev, a: Ciphertext, b: Ciphertext) -> Ciphertext:
     # the floor in Bsk, then each block's own q rows back to NTT form
     for c in coords:
         ctx, tb, lo = tables(c)
-        y_bsk = behz.floor_bsk(tb, prod_bsk[c], behz._canon(modops.wide(fbc[c]), tb.bsk_p))
+        y_bsk = behz.floor_bsk(tb, prod_bsk[c], behz._canon(fbc[c], tb.bsk_p))
         out[c] = behz.to_ntt(ctx, tb, behz._sk_to_q(tb, y_bsk, lo, rows), lo)
     return Ciphertext(ShardedTensor(out, mesh, x.spec), level=k, scale=1.0, is_ntt=True)

@@ -761,16 +761,18 @@ def all_reduce_mod(blocks: np.ndarray, mesh: Mesh, axis: Optional[str],
     conditional subtraction are exact mod any modulus): the BFV multiply
     stacks the m_tilde sum of its q -> Bsk conversion into the Bsk sums as
     such a row (``behz.conv_moduli``), so one all-reduce carries both.
-    One all-reduce."""
+    The blocks move as they are given, in either format; the sum is a
+    chain in the working format of ``ops/modops.py`` and is returned in
+    it.  One all-reduce."""
     out = np.empty(mesh.devices.shape, dtype=object)
     for group in _groups(mesh, axis):
         done: Dict[torch.device, torch.Tensor] = {}
         for c in group:
             dev = mesh.devices[c]
             if dev not in done:
-                pd = p.to(dev)
-                p2 = modops.add_raw(pd, pd)
-                acc = blocks[group[0]].to(dev)
+                pd = modops.wide(p.to(dev))
+                p2 = pd + pd
+                acc = modops.wide(blocks[group[0]].to(dev))
                 for q in group[1:]:
                     x = blocks[q].to(dev)
                     acc = (modops.reduce_2p(modops.add_raw(acc, x), p2) if lazy

@@ -14,6 +14,8 @@ view ``[..., l, n1, n2]`` sharded on its last axis and returns the
 transposed layout ``[..., l, n2, n1]`` sharded on its last axis;
 :func:`inv` takes that layout back.  Keeping the transposed layout between
 the two saves two all-to-alls a round trip; pointwise ops do not care.
+Blocks may come in either format of ``ops/modops.py`` (each is widened on
+entry); every all-to-all moves storage, and the result is storage.
 
 The local stages are ``ops/ntt.py``'s :func:`phase1` / :func:`phase2`, plain
 PyTorch on CPU and CUDA tensors alike.  That is faithful: the reference

@@ -25,7 +25,10 @@ layout is a reshape and a transpose (:func:`to_sp_layout`,
 
 Every op gives the single-device ``Evaluator``'s integers bit for bit: the
 arithmetic is the reference's, op for op and in the same order, and the
-sharded transform runs the flat loop's butterflies stage for stage.
+sharded transform runs the flat loop's butterflies stage for stage.  As
+there, each chain computes in the working format of ``ops/modops.py`` and
+narrows where it stores (an ``SpCiphertext``); the sharded transforms take
+either format.
 """
 
 from __future__ import annotations
@@ -38,12 +41,7 @@ import numpy as np
 import torch
 
 from reference_seal_backend_tpu_torch.evaluator import behz
-from reference_seal_backend_tpu_torch.evaluator.eval import (
-    Evaluator,
-    _lazy_ok,
-    _mod_sum,
-    _mod_sum_lazy,
-)
+from reference_seal_backend_tpu_torch.evaluator.eval import Evaluator
 from reference_seal_backend_tpu_torch.ops import modops
 from reference_seal_backend_tpu_torch.parallel import mesh as mesh_mod
 from reference_seal_backend_tpu_torch.parallel import sharded_ntt
@@ -61,6 +59,9 @@ class SpCiphertext:
     data: ShardedTensor
     level: int = 0
     scale: float = 1.0
+
+    def __post_init__(self):
+        modops.check_store(self.data)
 
     @property
     def size(self) -> int:
@@ -142,7 +143,7 @@ class SpEvaluator:
         self._behz_cache: Dict[torch.device, "behz.BehzTables"] = {}
         # what the composite ops keep per evaluator (evaluator/eval.py)
         self.plain_cache: dict = {}
-        self._flat = Evaluator(ctx, keys)  # host-side hoisted-key relayout
+        self._flat = Evaluator(ctx, keys)  # hoisted-key relayout; the lazy rule
 
     # -- placement ---------------------------------------------------------
 
@@ -174,7 +175,7 @@ class SpEvaluator:
 
     def add(self, a: SpCiphertext, b: SpCiphertext) -> SpCiphertext:
         p = _c3(self.ctx.p[: a.level])
-        return replace(a, data=modops.mod_add(a.data, b.data, p))
+        return replace(a, data=modops.narrow(modops.mod_add(a.data, b.data, p)))
 
     def _pt_sp(self, pt: Plaintext):
         """Plaintext data in sp layout: the flat single-device form
@@ -201,7 +202,7 @@ class SpEvaluator:
                 _c3(self.ctx.delta_shoup[: a.level]),
                 p,
             )
-        c0 = modops.mod_add(a.data[..., 0, :, :, :], pt_data, p)
+        c0 = modops.narrow(modops.mod_add(a.data[..., 0, :, :, :], pt_data, p))
         data = torch.cat([c0[..., None, :, :, :], a.data[..., 1:, :, :, :]], dim=-4)
         return replace(a, data=data)
 
@@ -211,16 +212,16 @@ class SpEvaluator:
         l = a.level
         p = _c3(self.ctx.p[:l])
         pni = _c3(self.ctx.p_neg_inv[:l])
-        data = modops.mont_mul(a.data, self._pt_sp(pt), p, pni)
+        data = modops.narrow(modops.mont_mul(a.data, self._pt_sp(pt), p, pni))
         return replace(a, data=data, scale=a.scale * pt.scale)
 
     def sub(self, a: SpCiphertext, b: SpCiphertext) -> SpCiphertext:
         p = _c3(self.ctx.p[: a.level])
-        return replace(a, data=modops.mod_sub(a.data, b.data, p))
+        return replace(a, data=modops.narrow(modops.mod_sub(a.data, b.data, p)))
 
     def negate(self, a: SpCiphertext) -> SpCiphertext:
         p = _c3(self.ctx.p[: a.level])
-        return replace(a, data=modops.mod_neg(a.data, p))
+        return replace(a, data=modops.narrow(modops.mod_neg(a.data, p)))
 
     # -- level / scale -----------------------------------------------------
 
@@ -246,15 +247,16 @@ class SpEvaluator:
         l = a.level
         p = _c3(self.ctx.p[:l])
         pni = _c3(self.ctx.p_neg_inv[:l])
-        a0, a1 = a.data[..., 0, :, :, :], a.data[..., 1, :, :, :]
-        b0, b1 = b.data[..., 0, :, :, :], b.data[..., 1, :, :, :]
+        ad, bd = modops.wide(a.data), modops.wide(b.data)
+        a0, a1 = ad[..., 0, :, :, :], ad[..., 1, :, :, :]
+        b0, b1 = bd[..., 0, :, :, :], bd[..., 1, :, :, :]
         c0 = modops.mont_mul(a0, b0, p, pni)
         c2 = modops.mont_mul(a1, b1, p, pni)
         z = modops.mont_mul(
             modops.mod_add(a0, a1, p), modops.mod_add(b0, b1, p), p, pni
         )
         cross = modops.mod_sub(modops.mod_sub(z, c0, p), c2, p)
-        data = torch.stack([c0, cross, c2], dim=-4)
+        data = modops.narrow(torch.stack([c0, cross, c2], dim=-4))
         return replace(a, data=data, scale=a.scale * b.scale)
 
     def _behz_on(self, dev: torch.device) -> "behz.BehzTables":
@@ -285,11 +287,11 @@ class SpEvaluator:
 
         def to_q_bsk(x, dev):  # [.., 2ab, 2, k, S] -> [.., 2ab, 2, k+kb, S]
             t = self._behz_on(dev)
-            ab_q = modops.w_mont_mul(x, 1, t.q_p, t.q_pni)
+            ab_q = modops.mont_mul(x, 1, t.q_p, t.q_pni)
             x_all = torch.cat([ab_q, behz._conv_to_bsk_mtilde(t, ab_q)], dim=-2)
             # operand a enters Montgomery form (xR); b stays normal
             return torch.cat([
-                modops.w_shoup_mul(x_all.narrow(nlead, 0, 1), *t.all_r1, t.all_p),
+                modops.shoup_mul(x_all.narrow(nlead, 0, 1), *t.all_r1, t.all_p),
                 x_all.narrow(nlead, 1, 1),
             ], dim=nlead)
 
@@ -313,7 +315,7 @@ class SpEvaluator:
             t = self._behz_on(dev)
             prod_q, prod_bsk = x[..., :k, :], x[..., k:, :]
             y_bsk = behz.floor_bsk(t, prod_bsk, behz._fbc_q_to_bsk(t, prod_q, t.t_qhinv))
-            return modops.w_shoup_mul(behz._sk_to_q(t, y_bsk), *t.q_r1, t.q_p)
+            return modops.shoup_mul(behz._sk_to_q(t, y_bsk), *t.q_r1, t.q_p)
 
         out_ntt = sharded_ntt.fwd(
             ctx.plan, prod.map_blocks(_space_flat(scale_down)), mesh, ax,
@@ -336,7 +338,7 @@ class SpEvaluator:
         ctx, mesh, ax, ba = self.ctx, self.mesh, self.axis, self.batch_axes
         plan = ctx.plan
         G = ctx.digit_group
-        lazy = _lazy_ok(ctx)
+        lazy = self._flat._lazy()
         d_mat = sharded_ntt.inv(plan, d, mesh, ax, lo=0, batch_axes=ba)
         p_t, mu_t = self._targets3(l)
         if G == 1:
@@ -394,7 +396,7 @@ class SpEvaluator:
         exact centred peel at ns = 1, the single fast base conversion at
         ns > 1), transforms sharded.  ``x`` may be lazy in ``[0, 2p)``."""
         ctx, mesh, ax, ba = self.ctx, self.mesh, self.axis, self.batch_axes
-        epi = not _lazy_ok(ctx)
+        epi = not self._flat._lazy()
         sp = ctx.sp_row
         ns = ctx.n_special
         plan = ctx.plan
@@ -471,16 +473,16 @@ class SpEvaluator:
         key; returns (kb, ka), each ``[..., l, n2, n1]`` NTT Montgomery."""
         l = level
         p_t, _ = self._targets3(l)
-        dig = self._digits(d, l)  # [..., n_dig, l+ns, n2, n1]
+        dig = modops.wide(self._digits(d, l))  # [..., n_dig, l+ns, n2, n1]
         kb, ka, kbs, kas = self._key_t(key, l)
-        if _lazy_ok(self.ctx):
+        if self._flat._lazy():
             # lazy Shoup terms in [0, 2p) (exact for the [0, 4p) digits), a
             # lazy sum, the mod-down consumes [0, 2p) directly
-            acc_b = _mod_sum_lazy(modops.shoup_mul_lazy(dig, kb, kbs, p_t), p_t, axis=-4)
-            acc_a = _mod_sum_lazy(modops.shoup_mul_lazy(dig, ka, kas, p_t), p_t, axis=-4)
+            sum_, mul = modops.mod_sum_lazy, modops.shoup_mul_lazy
         else:
-            acc_b = _mod_sum(modops.shoup_mul(dig, kb, kbs, p_t), p_t, axis=-4)
-            acc_a = _mod_sum(modops.shoup_mul(dig, ka, kas, p_t), p_t, axis=-4)
+            sum_, mul = modops.mod_sum, modops.shoup_mul
+        acc_b = sum_(mul(dig, kb, kbs, p_t), p_t, axis=-4)
+        acc_a = sum_(mul(dig, ka, kas, p_t), p_t, axis=-4)
         return self._mod_down(acc_b, l), self._mod_down(acc_a, l)
 
     def relinearize(self, a: SpCiphertext) -> SpCiphertext:
@@ -493,7 +495,7 @@ class SpEvaluator:
         kb, ka = self.key_switch(a.data[..., 2, :, :, :], self.keys.relin, l)
         c0 = modops.mod_add(a.data[..., 0, :, :, :], kb, p)
         c1 = modops.mod_add(a.data[..., 1, :, :, :], ka, p)
-        return replace(a, data=torch.stack([c0, c1], dim=-4))
+        return replace(a, data=modops.narrow(torch.stack([c0, c1], dim=-4)))
 
     # -- Galois / rotations ----------------------------------------------------
 
@@ -522,7 +524,7 @@ class SpEvaluator:
             a.data, self._galois_perm_t(g), 2, (self.n2, self.n1))
         kb, ka = self.key_switch(permuted[..., 1, :, :, :], self.keys.galois[g], l)
         c0 = modops.mod_add(permuted[..., 0, :, :, :], kb, p)
-        return replace(a, data=torch.stack([c0, ka], dim=-4))
+        return replace(a, data=modops.narrow(torch.stack([c0, ka], dim=-4)))
 
     def rotate(self, a: SpCiphertext, steps: int) -> SpCiphertext:
         n = self.ctx.n
@@ -596,15 +598,15 @@ class SpEvaluator:
             out = a.data
             for _ in range(n_id - 1):
                 out = modops.mod_add(out, a.data, p3)
-            return replace(a, data=out)
+            return replace(a, data=modops.narrow(out))
         # flat targets: p5-ordered tensors carry a single flat slot axis
         p_t = torch.cat([ctx.p[:l], ctx.p[ctx.sp_row :]], dim=0)  # [l+ns, 1]
-        lazy = _lazy_ok(ctx)
+        lazy = self._flat._lazy()
         p2_t = modops.add_raw(p_t, p_t)
         P_sp, Q_sp = self._p5_sp()
         to_p5 = lambda x: mesh_mod.gather_index(x, P_sp, 2, (n,))
         from_p5 = lambda x: mesh_mod.gather_index(x, Q_sp, 1, (self.n2, self.n1))
-        dig = to_p5(self._digits(a.data[..., 1, :, :, :], l))  # [..., n_dig, l+ns, N]
+        dig = modops.wide(to_p5(self._digits(a.data[..., 1, :, :, :], l)))  # [.., n_dig, l+ns, N]
         c0_p5 = to_p5(a.data[..., 0, :, :, :])
         acc = None       # [..., 2 (b, a), l+ns, N] before the mod-down, p5 order
         c0_parts = []    # rolled c0 components, [..., l, N] p5 order
@@ -615,22 +617,22 @@ class SpEvaluator:
             pair_w, pair_s = self._hoist_key_p5(g, l)
             if lazy:
                 terms = modops.shoup_mul_lazy(dig[..., None, :, :, :], pair_w, pair_s, p_t)
-                acc_g = self._roll_p5(_mod_sum_lazy(terms, p_t, axis=-3), s)
+                acc_g = self._roll_p5(modops.mod_sum_lazy(terms, p_t, axis=-3), s)
                 acc = acc_g if acc is None else modops.reduce_2p(
                     modops.add_raw(acc, acc_g), p2_t)
             else:
                 terms = modops.shoup_mul(dig[..., None, :, :, :], pair_w, pair_s, p_t)
-                acc_g = self._roll_p5(_mod_sum(terms, p_t, axis=-3), s)
+                acc_g = self._roll_p5(modops.mod_sum(terms, p_t, axis=-3), s)
                 acc = acc_g if acc is None else modops.mod_add(acc, acc_g, p_t)
             c0_parts.append(self._roll_p5(c0_p5, s))
         kba = self._mod_down(from_p5(acc), l)  # [..., 2, l, n2, n1]
-        c0_rot = from_p5(_mod_sum(torch.stack(c0_parts), ctx.p[:l], axis=0))
+        c0_rot = from_p5(modops.mod_sum(torch.stack(c0_parts), ctx.p[:l], axis=0))
         c0 = modops.mod_add(c0_rot, kba[..., 0, :, :, :], p3)
         c1 = kba[..., 1, :, :, :]
         for _ in range(n_id):
             c0 = modops.mod_add(c0, a.data[..., 0, :, :, :], p3)
             c1 = modops.mod_add(c1, a.data[..., 1, :, :, :], p3)
-        return replace(a, data=torch.stack([c0, c1], dim=-4))
+        return replace(a, data=modops.narrow(torch.stack([c0, c1], dim=-4)))
 
     # -- rescale -----------------------------------------------------------------
 
@@ -659,7 +661,7 @@ class SpEvaluator:
             )
             # w_ntt only feeds the fully reducing Shoup product below
             w_ntt = sharded_ntt.fwd(
-                ctx.plan, w, mesh, ax, lo=0, batch_axes=ba, epilogue=not _lazy_ok(ctx))
+                ctx.plan, w, mesh, ax, lo=0, batch_axes=ba, epilogue=not self._flat._lazy())
             sel = lambda t: t[drop, :drop][:, None, None]
             data = modops.mod_sub(
                 modops.shoup_mul(data[..., :drop, :, :], sel(ctx.div_inv), sel(ctx.div_inv_shoup), p),
@@ -668,7 +670,7 @@ class SpEvaluator:
             )
             l -= 1
             scale /= ctx.data_primes[l]
-        return replace(a, data=data, level=l, scale=scale)
+        return replace(a, data=modops.narrow(data), level=l, scale=scale)
 
 
 # -- observability -------------------------------------------------------------

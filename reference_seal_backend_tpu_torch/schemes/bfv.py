@@ -125,7 +125,7 @@ class BfvEncryptor:
         c1 = modops.mod_add(modops.mont_mul(pk.a[:L], u, p, pni), e1, p)
         # dim=-3 keeps [..., size, L, N] under leading batch axes
         return core.Ciphertext(
-            data=torch.stack([c0, c1], dim=-3), level=L, scale=1.0,
+            data=modops.narrow(torch.stack([c0, c1], dim=-3)), level=L, scale=1.0,
             is_ntt=True,
         )
 
@@ -146,7 +146,7 @@ class BfvDecryptor:
             acc = modops.mod_add(
                 modops.mont_mul(acc, s, p, pni), data[..., k, :, :], p
             )
-        return ctx.plan.inv(acc, lo=0)
+        return ctx.plan.inv(modops.narrow(acc), lo=0)
 
     def _centered(self, ct: core.Ciphertext) -> np.ndarray:
         """[c(s)]_q as centered bigints (object array [..., N])."""

@@ -131,7 +131,7 @@ class CkksEncryptor:
         # dim=-3 keeps the ciphertext [..., size, L, N] layout under
         # leading batch axes
         return core.Ciphertext(
-            data=torch.stack([c0, c1], dim=-3),
+            data=modops.narrow(torch.stack([c0, c1], dim=-3)),
             level=L,
             scale=pt.scale,
             is_ntt=True,
@@ -165,7 +165,7 @@ class CkksDecryptor:
             acc = modops.mod_add(
                 modops.mont_mul(acc, s, p, pni), data[..., k, :, :], p
             )
-        return ctx.plan.inv(acc, lo=0)
+        return ctx.plan.inv(modops.narrow(acc), lo=0)
 
     def decrypt_to_coeffs(self, ct: core.Ciphertext) -> np.ndarray:
         """sum_k c_k s^k, iNTT, CRT-compose -> centered bigint coefficients."""

@@ -1,8 +1,11 @@
 """Core HE data containers and host<->device RNS conversion.
 
 Counterpart of ``reference_seal_backend_tpu/schemes/core.py``: the same
-containers as frozen dataclasses over int32-stored uint32 tensors
-(ops/modops.py), and the same numpy RNS/CRT host helpers.
+containers as frozen dataclasses over int32-stored uint32 tensors, and the
+same numpy RNS/CRT host helpers.  A container holds storage only (the
+format rule of ops/modops.py): it refuses other data when it is built,
+``dataclasses.replace`` included, so a chain that forgets to narrow fails
+on the CPU as it would on the card.
 """
 
 from __future__ import annotations
@@ -12,6 +15,8 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+from reference_seal_backend_tpu_torch.ops.modops import check_store
 
 
 @dataclass(frozen=True)
@@ -28,6 +33,9 @@ class Ciphertext:
     level: int = 0
     scale: float = 1.0
     is_ntt: bool = True
+
+    def __post_init__(self):
+        check_store(self.data)
 
     @property
     def size(self) -> int:
@@ -46,6 +54,9 @@ class Plaintext:
     level: int = 0
     scale: float = 1.0
     is_ntt: bool = True
+
+    def __post_init__(self):
+        check_store(self.data)
 
     def to(self, device) -> "Plaintext":
         return replace(self, data=self.data.to(device))

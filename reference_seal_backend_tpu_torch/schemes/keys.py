@@ -184,12 +184,12 @@ def keygen(
     s_ntt = ctx.plan.fwd(modops.from_numpy(s_res, dev), lo=0)  # [nf, N]
     a_pk = modops.from_numpy(a_pk_np, dev)
     e_pk = ctx.plan.fwd(modops.from_numpy(e_pk_res, dev), lo=0)
-    b_pk = modops.mod_neg(
+    b_pk = modops.narrow(modops.mod_neg(
         modops.mod_add(
             modops.mont_mul(a_pk, s_ntt[:L], p_d, pni_d), e_pk, p_d
         ),
         p_d,
-    )
+    ))
     public = PublicKey(b=b_pk, a=a_pk)
     if n_sk == 0:
         return KeySet(s_ntt, public, None, {}, {})
@@ -199,7 +199,7 @@ def keygen(
     if need_relin:
         srcs.append(modops.mont_mul(s_ntt, s_ntt, p_full, pni_full))
     for g in elts:
-        srcs.append(ctx.plan.apply_galois_eval(s_ntt, g))
+        srcs.append(modops.wide(ctx.plan.apply_galois_eval(s_ntt, g)))
     src = torch.stack(srcs)  # [n_sk, nf, N]
     a_sk = modops.from_numpy(a_sk_np, dev)
     e_sk = ctx.plan.fwd(modops.from_numpy(e_sk_res, dev), lo=0)
@@ -227,6 +227,7 @@ def keygen(
     b[:, dig, row] = modops.mod_add(b[:, dig, row], terms, p_d)
     bs = _shoup_floor(b, p_full)
     as_ = _shoup_floor(a_sk, p_full)
+    b = modops.narrow(b)
 
     off = 1 if need_relin else 0
     relin = None

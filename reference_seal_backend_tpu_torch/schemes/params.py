@@ -15,7 +15,10 @@ A context owns the NTT plan over the full prime stack and every cross-limb
 constant the evaluator needs (Barrett mu, divisor inverses in one- and
 two-Montgomery form, centered-lift corrections), all precomputed host-side
 once and stored as tensors on the context's ``device``, shaped ``[L, 1]`` /
-``[L, L]`` for broadcast against limb-major data.
+``[L, L]`` for broadcast against limb-major data.  Only the evaluator's
+chains read them, so they are held in the working format of
+``ops/modops.py`` (its format rule); the NTT plan keeps its own tables in
+the kernel's storage format.
 """
 
 from __future__ import annotations
@@ -216,8 +219,8 @@ class Context:
     # -- helpers ------------------------------------------------------------
 
     def _put(self, arr: np.ndarray) -> torch.Tensor:
-        """numpy uint32 table -> residue-storage tensor on the device."""
-        return modops.from_numpy(arr, self.device)
+        """numpy uint32 table -> working-format constant on the device."""
+        return modops.wide(modops.from_numpy(arr, self.device))
 
     def consts(self, lo: int, nl: int):
         """(p, p_neg_inv) slices for limbs [lo, lo+nl), shape [nl, 1]."""

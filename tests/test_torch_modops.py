@@ -2,12 +2,17 @@
 function, random uint32 vectors plus the edge values 0, p-1, 2p-1, 4p-1 and
 2**32-1, for a 30-bit and a 31-bit NTT prime.  Both implementations wrap like
 uint32 everywhere, so the comparison holds for any input, in or out of a
-function's range contract."""
+function's range contract.  The port's functions return the working format
+(int64 values); each result is narrowed to storage before it is compared.
+The one modular sum tree against the JAX package's three (jitted)."""
 
 import numpy as np
 import pytest
+import jax
 import jax.numpy as jnp
 
+from reference_seal_backend_tpu.evaluator import behz as jbehz
+from reference_seal_backend_tpu.evaluator import eval as jeval
 from reference_seal_backend_tpu.nums import primegen
 from reference_seal_backend_tpu.ops import modops as jmod
 from reference_seal_backend_tpu_torch.ops import modops as tmod
@@ -74,10 +79,10 @@ def test_matches_reference(name, bits):
     want = np.asarray(
         fn(jmod, jnp.asarray(a), jnp.asarray(b), jc, jnp.asarray(w), jnp.asarray(ws))
     )
-    got = tmod.to_numpy(
+    got = tmod.to_numpy(tmod.narrow(
         fn(tmod, tmod.from_numpy(a), tmod.from_numpy(b), tc,
            tmod.from_numpy(np.asarray(w)), tmod.from_numpy(np.asarray(ws)))
-    )
+    ))
     np.testing.assert_array_equal(got, want)  # integers: tolerance 0
 
 
@@ -85,7 +90,7 @@ def test_umulhi32_top_edge():
     """0xFFFFFFFF x 0xFFFFFFFF does not fit int64: the wrap of the int64
     product must still give the exact high word."""
     x = tmod.from_numpy(np.array([M32], dtype=np.uint32))
-    assert int(tmod.to_numpy(tmod.umulhi32(x, x))[0]) == (M32 * M32) >> 32
+    assert int(tmod.to_numpy(tmod.narrow(tmod.umulhi32(x, x)))[0]) == (M32 * M32) >> 32
 
 
 @pytest.mark.parametrize("bits", [30, 31])
@@ -97,9 +102,9 @@ def test_arithmetic_against_bignum(bits):
     b = rng.integers(0, p, 512, dtype=np.uint64).astype(np.uint32)
     c = tmod.mont_consts(p)
     tc = {k: tmod.from_numpy(np.asarray(v)) for k, v in c.items()}
-    got = tmod.to_numpy(
+    got = tmod.to_numpy(tmod.narrow(
         tmod.mont_mul(tmod.from_numpy(a), tmod.from_numpy(b), tc["p"], tc["p_neg_inv"])
-    )
+    ))
     rinv = pow(1 << 32, -1, p)
     want = [int(x) * int(y) * rinv % p for x, y in zip(a, b)]
     np.testing.assert_array_equal(got, np.array(want, dtype=np.uint32))
@@ -124,9 +129,33 @@ def test_storage_roundtrip_and_add_raw():
     np.testing.assert_array_equal(tmod.to_numpy(t), x)
     np.testing.assert_array_equal(tmod.to_numpy(tmod.narrow(tmod.wide(t))), x)
     np.testing.assert_array_equal(
-        tmod.to_numpy(tmod.add_raw(t, t)), (x + x).astype(np.uint32)
+        tmod.to_numpy(tmod.narrow(tmod.add_raw(t, t))), (x + x).astype(np.uint32)
     )
     np.testing.assert_array_equal(
-        tmod.to_numpy(tmod.ugt(t, tmod.from_numpy(np.array([2**31 - 1], dtype=np.uint32)))),
+        tmod.to_numpy(tmod.narrow(
+            tmod.ugt(t, tmod.from_numpy(np.array([2**31 - 1], dtype=np.uint32))))),
         (x > 2**31 - 1).astype(np.uint32),
     )
+
+
+# the JAX package's three pairwise sums -> (port tree, terms' range: below
+# bound * p); odd and even lengths along the summed axis show the pairing
+_TREES = {
+    "eval._mod_sum": (jeval._mod_sum, tmod.mod_sum, 1),
+    "eval._mod_sum_lazy": (jeval._mod_sum_lazy, tmod.mod_sum_lazy, 2),
+    "behz._mod_sum_axis_lazy": (jbehz._mod_sum_axis_lazy, tmod.mod_sum_lazy, 2),
+}
+
+
+@pytest.mark.parametrize("ref", sorted(_TREES))
+def test_sum_tree_matches_reference(ref):
+    jfn, tfn, bound = _TREES[ref]
+    primes = primegen.gen_ntt_primes(3, 30, 4096)
+    p = np.array(primes, dtype=np.uint32)[:, None]
+    rng = np.random.default_rng(len(ref))
+    x = rng.integers(0, 2**62, (4, 5, 3, 64), dtype=np.uint64)
+    x = (x % (p.astype(np.uint64) * np.uint64(bound))).astype(np.uint32)
+    for axis in (0, -3):
+        want = np.asarray(jax.jit(lambda v: jfn(v, jnp.asarray(p), axis))(x))
+        got = tfn(tmod.from_numpy(x), tmod.wide(tmod.from_numpy(p)), axis)
+        np.testing.assert_array_equal(tmod.to_numpy(tmod.narrow(got)), want)

@@ -33,7 +33,7 @@ from reference_seal_backend_tpu_torch.evaluator import composite as tcomp
 from reference_seal_backend_tpu_torch.evaluator.eval import Evaluator as TEvaluator
 from reference_seal_backend_tpu_torch.parallel import mesh as tmesh
 from reference_seal_backend_tpu_torch.parallel import sp_eval as tsp
-from reference_seal_backend_tpu_torch.schemes.core import Ciphertext
+from reference_seal_backend_tpu_torch.schemes.core import Ciphertext, Plaintext
 from reference_seal_backend_tpu_torch.utils import staging
 from reference_seal_backend_tpu_torch.utils.device import mesh_devices
 
@@ -57,7 +57,9 @@ def test_signature_and_rebuild_over_sharded_leaves():
     """Spec, mesh, block shape, level and aliasing each give a new key;
     equal arguments one key; the leaves are the blocks in mesh order, a
     block that is one object in several blocks one leaf; the rebuild gives
-    a ``ShardedTensor`` on the same mesh and spec, aliasing kept."""
+    a ``ShardedTensor`` on the same mesh and spec, aliasing kept.  Each
+    container refuses working-format (int64) data, sharded or not, and
+    takes storage (schemes/core.py)."""
     m = _mesh((2, 2))
     x = torch.arange(2 * 2 * 6 * 16, dtype=torch.int32).reshape(2, 2, 6, 16)
     ct = tmesh.shard_ct(Ciphertext(x, level=6, scale=2.0 ** 40), m, n_batch_axes=1,
@@ -94,6 +96,14 @@ def test_signature_and_rebuild_over_sharded_leaves():
     assert len(rep_leaves) == 2 and rep_leaves[0] is blocks[0, 0] is blocks[0, 1]
     apart = rep.map_blocks(lambda b, c: b.clone())
     assert _key(apart) != rep_key  # the same blocks' shapes, aliased otherwise
+    # the format rule: storage taken above, the working format refused
+    to_wide = lambda t: t.map_blocks(lambda b, c: b.to(torch.int64))
+    for build in (lambda: Ciphertext(x.to(torch.int64), level=6),
+                  lambda: Plaintext(x[0].to(torch.int64), level=6),
+                  lambda: replace(ct, data=to_wide(ct.data)),
+                  lambda: replace(sp, data=to_wide(sp.data))):
+        with pytest.raises(TypeError, match="residue storage"):
+            build()
     # the rebuild
     new = [t.clone() + 1 for t in rep_leaves]
     (out,) = staging._rebuild((rep,), iter(new))

@@ -61,7 +61,8 @@ def built():
 
 def test_signature_is_what_jit_keys_a_call_on():
     """Shape, dtype, strides, level, scale and ``is_ntt`` each give a new
-    key; equal arguments the same key and their tensor leaves in order."""
+    key; equal arguments the same key and their tensor leaves in order.  A
+    container holds storage only, so a bare tensor leaf shows the dtype."""
     x = torch.zeros((2, 3, 8), dtype=torch.int32)
     ct = Ciphertext(x, level=3, scale=2.0 ** 40)
     key, leaves = staging.signature((ct, Plaintext(x[0], level=3), 5))
@@ -70,7 +71,7 @@ def test_signature_is_what_jit_keys_a_call_on():
     assert len(leaves) == 2 and leaves[0] is x
     changed = [
         replace(ct, data=torch.zeros((2, 3, 4), dtype=torch.int32)),  # shape
-        replace(ct, data=x.to(torch.int64)),                           # dtype
+        (x.to(torch.int64),),                                          # dtype
         replace(ct, data=x.transpose(0, 1).contiguous().transpose(0, 1)),  # strides
         replace(ct, level=2),
         replace(ct, scale=2.0 ** 41),
@@ -78,6 +79,7 @@ def test_signature_is_what_jit_keys_a_call_on():
     ]
     keys = {staging.signature((c, Plaintext(x[0], level=3), 5))[0] for c in changed}
     assert len(keys) == len(changed) and key not in keys
+    assert staging.signature(((x,), Plaintext(x[0], level=3), 5))[0] not in keys
     assert staging.signature((ct, Plaintext(x[0], level=3), 6))[0] != key
     with pytest.raises(TypeError, match="staged call takes"):
         staging.signature((object(),))
@@ -86,7 +88,8 @@ def test_signature_is_what_jit_keys_a_call_on():
 def test_same_result_is_equal_integers_and_static_fields():
     """A staged result is held to its eager run by ``same_result``: equal
     tensors of one dtype and shape, and the same level, scale and
-    ``is_ntt``, through tuples and lists."""
+    ``is_ntt``, through tuples and lists (a container holds storage only:
+    a bare tensor shows the dtype)."""
     x = torch.arange(48, dtype=torch.int32).reshape(2, 3, 8)
     ct = Ciphertext(x, level=3, scale=2.0 ** 40)
     assert staging.same_result((ct, [Plaintext(x[0], level=3)], 5),
@@ -96,7 +99,6 @@ def test_same_result_is_equal_integers_and_static_fields():
     y[1, 2, 7] += 1
     differ = [
         replace(ct, data=y),
-        replace(ct, data=x.to(torch.int64)),
         replace(ct, level=2),
         replace(ct, scale=2.0 ** 41),
         replace(ct, is_ntt=False),
@@ -104,6 +106,8 @@ def test_same_result_is_equal_integers_and_static_fields():
         (ct,),
     ]
     assert not any(staging.same_result(ct, d) for d in differ)
+    assert staging.same_result(x, x.clone())
+    assert not staging.same_result(x, x.to(torch.int64))
     assert not staging.same_result([ct], [ct, ct])
 
 

@@ -142,8 +142,8 @@ def test_key_switch_and_digits_bit_exact(sides):
         j, lambda s: s.ev.key_switch(s.a.data[..., 1, :, :], s.ev.keys.relin, s.a.level)
     )
     tkb, tka = t.ev.key_switch(t.a.data[..., 1, :, :], t.ev.keys.relin, t.a.level)
-    np.testing.assert_array_equal(tmod.to_numpy(tkb), np.asarray(jkb))
-    np.testing.assert_array_equal(tmod.to_numpy(tka), np.asarray(jka))
+    np.testing.assert_array_equal(tmod.to_numpy(tmod.narrow(tkb)), np.asarray(jkb))
+    np.testing.assert_array_equal(tmod.to_numpy(tmod.narrow(tka)), np.asarray(jka))
 
 
 def test_hoisted_key_fallback_matches_keygen_variant(sides):

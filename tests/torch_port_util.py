@@ -36,7 +36,7 @@ def bfv_contexts(n, digit_group=None):
 
 
 def wide_to_numpy(x) -> np.ndarray:
-    """Port wide-domain tensor (int64 holding uint32 values) -> uint32."""
+    """Port working-format tensor (int64 holding uint32 values) -> uint32."""
     return x.cpu().numpy().astype(np.uint32)
 
 
