@@ -25,7 +25,12 @@ operands' inverse transforms stacked on a leading axis, the forward and
 inverse transforms of the tensor product over q u Bsk on one limb axis
 (``BehzTables.mult_plan``), and the output's forward transform.  Between
 them each step is a chain in the working format of ``ops/modops.py`` (its
-format rule), and the tables are held in that format on the device.  On
+format rule), and the tables are held in that format on the device.
+Leading axes of the operands broadcast, and only in the tensor product's
+three Karatsuba products: every step before them is pointwise per
+polynomial and runs on each operand's distinct ciphertexts
+(:func:`operands`), so a product of P ciphertexts broadcast from Pa and
+Pb converts Pa + Pb of them, not 2P.  On
 the card, the flat multiply runs steps 4 and 5 and the output's entry into
 Montgomery form as one uint32 kernel (``csrc/behz.cu``), whose oracle these
 functions are; the limb path and the CPU run the functions.
@@ -316,7 +321,8 @@ def _sk_to_q(tb: BehzTables, y_bsk: torch.Tensor, lo: int = 0,
 def _tensor(x, y, p, pni):
     """(x0,x1) (x) (y0,y1) dyadic; x Montgomery, y normal -> products
     normal.  Karatsuba: 3 Montgomery products instead of 4; the raw sums
-    (< 2p) keep mont_mul exact since every prime is < 2**30."""
+    (< 2p) keep mont_mul exact since every prime is < 2**30.  Leading axes
+    of x and y broadcast in the products; the sums run on each alone."""
     x0, x1 = x[..., 0, :, :], x[..., 1, :, :]
     y0, y1 = y[..., 0, :, :], y[..., 1, :, :]
     c0 = modops.mont_mul(x0, y0, p, pni)
@@ -327,10 +333,13 @@ def _tensor(x, y, p, pni):
 
 
 def operands(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """The two operands' data broadcast against each other and stacked on
-    a new leading axis: ``[2ab, ..., 2, rows, N]``."""
-    shape = torch.broadcast_shapes(a.shape, b.shape)
-    return torch.stack([a.expand(shape), b.expand(shape)], dim=0)
+    """The two operands' distinct ciphertexts, each operand's own leading
+    axes flattened, a's then b's on one leading axis: ``[Pa + Pb, 2, rows,
+    N]``.  Nothing broadcasts here: the operands meet only in the tensor
+    product's Karatsuba products (:func:`tensor_product`), so every step
+    before them runs once per distinct polynomial."""
+    flat = lambda x: x.reshape(-1, *x.shape[-3:])
+    return torch.cat([flat(a), flat(b)], dim=0)
 
 
 def to_coeff(ctx: BfvContext, tb: BehzTables, ab: torch.Tensor, lo: int = 0):
@@ -342,19 +351,26 @@ def to_coeff(ctx: BfvContext, tb: BehzTables, ab: torch.Tensor, lo: int = 0):
 
 
 def tensor_product(tb: BehzTables, ab_q: torch.Tensor, ab_bsk: torch.Tensor,
-                   lo: int = 0) -> torch.Tensor:
+                   leads, lo: int = 0) -> torch.Tensor:
     """Step 3 of the multiply on the q rows ``[lo, lo + r)`` and all of
-    Bsk, as its inverse sweep leaves it: ``[..., 3, r + kb, N]`` storage,
-    normal coefficients, the window's q rows then Bsk.  One forward and one
-    inverse sweep over the window's tensor base (:func:`window`)."""
+    Bsk, as its inverse sweep leaves it: ``[..., 3, r + kb, N]`` storage
+    over the operands' broadcast leading shape, normal coefficients, the
+    window's q rows then Bsk.  ``ab_q`` and ``ab_bsk`` are in the layout
+    of :func:`operands`, ``leads`` the two operands' own leading shapes.
+    One forward sweep over the distinct operands and one inverse sweep
+    over the products, both over the window's tensor base
+    (:func:`window`); the operands broadcast only in :func:`_tensor`."""
     w = modops.wide
     plan, p, pni, r1 = window(tb, lo, ab_q.shape[-2])
-    x_all = torch.cat([ab_q, ab_bsk], dim=-2)  # [2ab, ..., 2, r+kb, N]
+    pa = math.prod(leads[0])
+    x_all = torch.cat([ab_q, ab_bsk], dim=-2)  # [Pa + Pb, 2, r + kb, N]
     # Operand a enters Montgomery form (xR) so that the dyadic Montgomery
     # products land in normal form; operand b stays normal.
-    x_all = torch.cat([modops.shoup_mul(x_all[:1], *r1, p), x_all[1:]], dim=0)
+    x_all = torch.cat([modops.shoup_mul(x_all[:pa], *r1, p), x_all[pa:]], dim=0)
     ntt_all = w(plan.fwd(modops.narrow(x_all), lo=0))
-    return plan.inv(modops.narrow(_tensor(ntt_all[0], ntt_all[1], p, pni)), lo=0)
+    x, y = (part.reshape(*lead, *part.shape[1:])
+            for part, lead in zip((ntt_all[:pa], ntt_all[pa:]), leads))
+    return plan.inv(modops.narrow(_tensor(x, y, p, pni)), lo=0)
 
 
 def floor_bsk(tb: BehzTables, prod_bsk: torch.Tensor, fbc: torch.Tensor):
@@ -400,17 +416,21 @@ def bfv_multiply(ctx: BfvContext, a: Ciphertext, b: Ciphertext) -> Ciphertext:
     # stored, before they broadcast) and 3P product polynomials
     shape = torch.broadcast_shapes(a.data.shape, b.data.shape)
     P, k, n = math.prod(shape[:-3]), shape[-2], shape[-1]
-    D = 2 * (math.prod(a.data.shape[:-3]) + math.prod(b.data.shape[:-3]))
+    leads = (a.data.shape[:-3], b.data.shape[:-3])
+    D = 2 * (math.prod(leads[0]) + math.prod(leads[1]))
     kb = len(ctx.bsk_primes)
     wide, store = modops.WIDE.itemsize, a.data.element_size()
     with counters.step("bfv_multiply", P, k, k, n, store):
-        # [2ab, ..., 2, k, N] NTT Montgomery -> normal coefficients
+        ab = operands(a.data, b.data)  # [Pa + Pb, 2, k, N]
+        # the polynomials the operand side runs on, read from the tensor
+        counters.note("behz.operand_polys", math.prod(ab.shape[:-2]), k, k, n, wide)
+        # NTT Montgomery -> normal coefficients
         with counters.step("behz.to_coeff", D, k, k, n, wide):
-            ab_q = to_coeff(ctx, tb, operands(a.data, b.data))
+            ab_q = to_coeff(ctx, tb, ab)
         with counters.step("behz.conv_q_bsk_mtilde", D, k, kb, n, wide):
-            ab_bsk = _conv_to_bsk_mtilde(tb, ab_q)  # [2ab, ..., 2, kb, N]
+            ab_bsk = _conv_to_bsk_mtilde(tb, ab_q)  # [Pa + Pb, 2, kb, N]
         with counters.step("behz.tensor_product", P, k + kb, k + kb, n, wide, D):
-            prod = tensor_product(tb, ab_q, ab_bsk)  # [..., 3, k + kb, N] storage
+            prod = tensor_product(tb, ab_q, ab_bsk, leads)  # [..., 3, k + kb, N] storage
         if prod.is_cuda:
             # the floor, the conversion back to q and the Montgomery entry in
             # one kernel; its steps counted as the plain path counts them

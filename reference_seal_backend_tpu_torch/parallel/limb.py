@@ -52,8 +52,10 @@ for the unevenness; replicating costs one all-gather of at most the
 level's rows, once.
 
 The BFV BEHZ multiply (:func:`bfv_multiply`).  Each block runs
-``evaluator/behz.py``'s steps on its q window: its rows to coefficients
-(K2 at its first limb), its share of the q -> Bsk conversion, and, after
+``evaluator/behz.py``'s steps on its q window and on its operands'
+distinct ciphertexts (``behz.operands``: they broadcast only in the
+tensor product): its rows to coefficients (K2 at its first limb), its
+share of the q -> Bsk conversion, and, after
 one all-reduce has summed the shares, all of Bsk, which every block then
 holds (as every block holds the special rows after a key switch's
 all-reduce).  The tensor product runs over the window and Bsk on one
@@ -304,7 +306,8 @@ def bfv_multiply(ev, a: Ciphertext, b: Ciphertext) -> Ciphertext:
         ctx, tb, lo = tables(c)
         s = conv[c]  # the all-reduce's sums, in the working format
         ab_bsk = behz._conv_finish(tb, s[..., :kb, :], s[..., kb, :])
-        prod = modops.wide(behz.tensor_product(tb, ab_q[c], ab_bsk, lo))
+        leads = (x.blocks[c].shape[:-3], y.blocks[c].shape[:-3])
+        prod = modops.wide(behz.tensor_product(tb, ab_q[c], ab_bsk, leads, lo))
         prod_q, prod_bsk[c] = prod[..., :rows, :], prod[..., rows:, :]
         parts[c] = modops.narrow(behz._fbc_partial(tb, prod_q, tb.t_qhinv, lo))
     fbc = mesh_mod.all_reduce_mod(parts, mesh, axis, tb0.bsk_p, True)

@@ -22,9 +22,13 @@ output; ``extra`` as the step's note says.  The steps:
   ``behz.to_coeff``, ``behz.conv_q_bsk_mtilde``, ``behz.tensor_product``,
   ``behz.floor_q_bsk``, ``behz.sk_bsk_q``, ``behz.to_ntt``.  The steps on
   the operands count the operands' distinct polynomials, as stored before
-  they broadcast against each other, not the copies the program makes:
-  ``polys`` of the first two, ``extra`` = ``(operand polys,)`` of the
-  tensor product, whose ``polys`` are its products.  On the card
+  they broadcast against each other: ``polys`` of the first two,
+  ``extra`` = ``(operand polys,)`` of the tensor product, whose ``polys``
+  are its products.  ``behz.operand_polys`` (the shape of
+  ``behz.to_coeff``) notes the polynomials that the operands' inverse
+  sweep received, read from the tensor: the operand side runs once per
+  distinct polynomial, so it equals ``behz.to_coeff``'s ``polys``, not
+  the 4P polynomials of the operands broadcast.  On the card
   ``behz.fused_floor_sk`` (``polys`` the 3P product polynomials, ``rows_in``
   = k + kb, ``rows_out`` = k) notes the one kernel that runs the floor,
   the conversion back to q and the Montgomery entry; ``behz.floor_q_bsk``

@@ -1,7 +1,8 @@
 """The BEHZ multiply of the port vs the JAX package's at N=1024,
 ``sec_level=0``: each conversion stage on random in-range inputs, the tensor
-product, ``bfv_multiply`` under broadcast leading axes ``[3,1] x [1,4]``,
-multiply then relinearize, and the rotations BFV shares with CKKS.  Tolerance
+product, ``bfv_multiply`` under broadcast leading axes ``[3,1] x [1,4]`` and
+the cipher-batch-axis cell's ``[2,3,1] x [1,3,2]``, multiply then
+relinearize, and the rotations BFV shares with CKKS.  Tolerance
 0 on every residue, every intermediate included; decrypted products equal to
 the JAX package's and to the cleartext.  Every JAX-side call is jitted; every
 tensor the port hands to a transform passes the CUDA wrapper's view rules.
@@ -100,18 +101,24 @@ def _encrypt_both(env, lead, seed):
     return vals, jct, ct_to_port(jct)
 
 
-def test_bfv_multiply_broadcast_equal(env, monkeypatch):
+@pytest.mark.parametrize("lead_a, lead_b", [((3, 1), (1, 4)), ((2, 3, 1), (1, 3, 2))],
+                         ids=["2-axis", "cba-3-axis"])
+def test_bfv_multiply_broadcast_equal(env, monkeypatch, lead_a, lead_b):
     jc, tc, jk, tk, _, _ = env
-    va, ja, ta = _encrypt_both(env, (3, 1), 4)
-    vb, jb, tb = _encrypt_both(env, (1, 4), 5)
+    va, ja, ta = _encrypt_both(env, lead_a, 4)
+    vb, jb, tb = _encrypt_both(env, lead_b, 5)
     jout = jax.jit(functools.partial(jbehz.bfv_multiply, jc))(ja, jb)
     seen = check_ntt_views(monkeypatch)
     tout = TEvaluator(tc, tk).multiply(ta, tb)
-    # the four sweeps: both operands' iNTT, q u Bsk fwd and inv, output fwd
-    assert seen == [(2, 3, 4, 2, 4, N), (2, 3, 4, 2, 10, N), (3, 4, 3, 10, N),
-                    (3, 4, 3, 4, N)]
+    # the four sweeps: both operands' iNTT and q u Bsk fwd on the distinct
+    # ciphertexts (each operand's own, a's then b's), then q u Bsk inv and
+    # output fwd on the broadcast products
+    lead = tuple(np.broadcast_shapes(lead_a, lead_b))
+    distinct = int(np.prod(lead_a) + np.prod(lead_b))
+    assert seen == [(distinct, 2, 4, N), (distinct, 2, 10, N), (*lead, 3, 10, N),
+                    (*lead, 3, 4, N)]
     assert_same_ct(tout, jout)
-    assert tuple(tout.data.shape) == (3, 4, 3, jc.L, N)
+    assert tuple(tout.data.shape) == (*lead, 3, jc.L, N)
     got = tbfv.BfvDecryptor(tc, tk).decrypt(tout)
     np.testing.assert_array_equal(got, jbfv.BfvDecryptor(jc, jk).decrypt(jout))
     np.testing.assert_array_equal(got, va * vb)

@@ -45,6 +45,9 @@ torch.set_num_threads(1)
 CONFIG = "bfv_matmult_cba_n8192"
 R0, C0, C1 = 2, 3, 2
 SEED = 2147483711
+#: the polynomials the operand side runs on: the distinct operands' D = 24,
+#: not the 4P = 48 of the operands broadcast to the products' shape
+D_OPERANDS = 2 * (R0 * C0 + C0 * C1)
 
 
 def tiny_config() -> dict:
@@ -68,13 +71,15 @@ def cba():
 def expected_steps(ctx) -> Counter:
     """One ``operate``'s counts, from the shapes: ``P`` products over ``k``
     q limbs and ``kb`` Bsk primes, of ``D`` distinct operand polynomials
-    (two a ciphertext of M0 and of M1), ``R`` relinearized outputs."""
+    (two a ciphertext of M0 and of M1), on which the operand side runs,
+    ``R`` relinearized outputs."""
     P, R, k, n = R0 * C0 * C1, R0 * C1, ctx.L, ctx.n
-    D = 2 * (R0 * C0 + C0 * C1)
+    D = D_OPERANDS
     kb = len(ctx.bsk_primes)
     return Counter({
         ("operate",): 1,
         ("bfv_multiply", P, k, k, n, 4): 1,
+        ("behz.operand_polys", D, k, k, n, 8): 1,
         ("behz.to_coeff", D, k, k, n, 8): 1,
         ("behz.conv_q_bsk_mtilde", D, k, kb, n, 8): 1,
         ("behz.tensor_product", P, k + kb, k + kb, n, 8, D): 1,
@@ -83,6 +88,13 @@ def expected_steps(ctx) -> Counter:
         ("behz.to_ntt", 3 * P, k, k, n, 4): 1,
         ("relinearize", R, k, k, n, 4, ctx.n_special, ctx.dig_count(k)): 1,
     })
+
+
+def operand_polys(counts: Counter) -> list:
+    """The polynomials the operand side's inverse sweep received, one
+    entry a noted run (``behz.operand_polys``)."""
+    return [key[1] for key, v in counts.items()
+            if key[0] == "behz.operand_polys" for _ in range(v)]
 
 
 def test_cba_equals_the_plain_reference(cba):
@@ -102,6 +114,7 @@ def test_one_operate_counts_its_steps(cba):
     counters.reset()
     system.operate(loaded[0])
     assert counters.counts == expected_steps(system.bench.ctx)
+    assert operand_polys(counters.counts) == [D_OPERANDS]
 
 
 class _NoGraph:
@@ -130,6 +143,8 @@ def test_a_replay_credits_what_its_capture_noted(cba):
     want = expected_steps(system.bench.ctx)
     del want[("operate",)]
     assert counters.counts == Counter({k: 2 * v for k, v in want.items()})
+    assert operand_polys(steps) == [D_OPERANDS]
+    assert operand_polys(counters.counts) == [D_OPERANDS] * 2
 
 
 def test_the_transforms_noted_are_those_run(cba, monkeypatch):
@@ -221,7 +236,9 @@ def test_the_cpu_and_the_limb_path_run_the_plain_steps(monkeypatch):
     cols = [torch.randint(0, p, (2, 2, TINY_N), generator=gen, dtype=torch.int64)
             for p in ctx.data_primes]
     data = modops.narrow(torch.stack(cols, dim=-2))
-    a, b = (Ciphertext(data=d, level=ctx.L) for d in (data, data.flip(0)))
+    # b's one ciphertext broadcasts against a's two: the flat multiply and
+    # the limb blocks convert the three distinct operands, not four copies
+    a, b = (Ciphertext(data=d, level=ctx.L) for d in (data, data[1:]))
 
     def refused(*args):
         raise AssertionError("the fused BEHZ kernel was called off the card")
@@ -242,6 +259,7 @@ def test_the_cpu_and_the_limb_path_run_the_plain_steps(monkeypatch):
     flat = behz.bfv_multiply(ctx, a, b)
     assert ran == Counter(_fbc_q_to_bsk=1, _fbc_partial=1, floor_bsk=1, _sk_to_q=1)
     assert not any(key[0] == "behz.fused_floor_sk" for key in counters.counts)
+    assert operand_polys(counters.counts) == [6]  # 2 x (2 + 1), not 4P = 8
     ran.clear()
     mesh = mesh_mod.make_mesh(2, devices=[torch.device("cpu")] * 2)
     place = lambda c: mesh_mod.shard_ct(c, mesh, n_batch_axes=1, batch_axes=(None,),

@@ -3,7 +3,8 @@ the plain steps it replaces, ``evaluator/behz.py``'s ``_fbc_q_to_bsk`` ->
 ``floor_bsk`` -> ``_sk_to_q`` -> the Montgomery entry, on the card, bit for
 bit: at the cipher-batch-axis cell's shapes, at every number of q limbs the
 kernel takes, on edge inputs, through a whole multiply and relinearization,
-and inside the captured stages of a benchmark.
+through one at the cell's broadcast against the CPU, and inside the
+captured stages of a benchmark.
 
 Needs an NVIDIA GPU and ``nvcc``; skips elsewhere.  Run on the GPU machine:
 
@@ -131,6 +132,39 @@ def test_multiply_and_relinearize_fused_equal_plain(card, monkeypatch):
     assert torch.equal(got.data, want.data)
     np.testing.assert_array_equal(
         bfv.BfvDecryptor(ctx, ks).decrypt(got) % ctx.t, vals[0] * vals[1] % ctx.t)
+
+
+def test_multiply_and_relinearize_at_the_cba_broadcast_equal_the_cpu(card):
+    # the cipher-batch-axis cell's broadcast [r0, c0, 1] x [1, c0, c1] at the
+    # registered context: the card (each distinct operand converted once, the
+    # operands broadcast in the Karatsuba products, the fused kernel) against
+    # the CPU's plain steps on the same ciphertexts and keys, bit for bit
+    from reference_seal_backend_tpu_torch.evaluator.eval import Evaluator
+    from reference_seal_backend_tpu_torch.parallel import limb
+    from reference_seal_backend_tpu_torch.schemes import bfv, core, keys
+
+    ctx = make_bfv_context(device=card)
+    ks = keys.keygen(ctx, seed=6, need_relin=True)
+    enc, er = bfv.BfvBatchEncoder(ctx), bfv.BfvEncryptor(ctx, ks, seed=6)
+    rng = np.random.default_rng(4)
+
+    def encrypt(lead):
+        vals = rng.integers(0, ctx.t, (*lead, ctx.n))
+        data = torch.stack([enc.encode(v).data for v in vals.reshape(-1, ctx.n)])
+        pt = core.Plaintext(data=data.reshape(*lead, *data.shape[-2:]), level=ctx.L)
+        return vals, er.encrypt_pt(pt)
+
+    (va, a), (vb, b) = encrypt((2, 3, 1)), encrypt((1, 3, 2))
+    ev = Evaluator(ctx, ks)
+    before = behz_cuda.launches["behz_floor_sk"]
+    got = ev.relinearize(ev.multiply(a, b))
+    assert behz_cuda.launches["behz_floor_sk"] == before + 1
+    cpu = limb.on_device(ev, torch.device("cpu"))
+    want = cpu.relinearize(cpu.multiply(a.to("cpu"), b.to("cpu")))
+    assert got.data.shape == (2, 3, 2, 2, ctx.L, ctx.n)
+    assert torch.equal(got.data.cpu(), want.data)
+    np.testing.assert_array_equal(
+        bfv.BfvDecryptor(ctx, ks).decrypt(got) % ctx.t, va * vb % ctx.t)
 
 
 def test_captured_stages_run_the_fused_kernel(card):
