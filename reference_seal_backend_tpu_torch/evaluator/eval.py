@@ -731,7 +731,8 @@ class Evaluator:
         Replaces a rotate-then-add accumulation loop at 1/len(steps) of
         the dominant digit-lift NTT cost.  Step 0 is
         the identity (no key needed); each other step needs its Galois
-        key.  Same level/scale as the input.
+        key.  Same level/scale as the input.  Noted once a call
+        (``rotate_sum`` in ``utils/counters.py``), its phases in spans.
         """
         ctx = self.ctx
         if a.size != 2:
@@ -743,26 +744,32 @@ class Evaluator:
         n_id = len(norm) - len(nonzero)
         l = a.level
         p = ctx.p[:l]
+        for s in nonzero:
+            g = pow(5, s, 2 * n)
+            if self.keys is None or g not in self.keys.galois:
+                raise ValueError(f"missing Galois key for element {g}")
+        counters.note("rotate_sum", math.prod(a.data.shape[:-3]), l, l, n,
+                      modops.STORE.itemsize, len(nonzero), n_id, ctx.n_special,
+                      ctx.dig_count(l))
         if not nonzero:
             out = a.data
             for _ in range(n_id - 1):
                 out = modops.mod_add(out, a.data, p)
             return replace(a, data=modops.narrow(out))
-        for s in nonzero:
-            g = pow(5, s, 2 * n)
-            if self.keys is None or g not in self.keys.galois:
-                raise ValueError(f"missing Galois key for element {g}")
         if isinstance(a.data, ShardedTensor):
             return replace(
                 a, data=limb.rotate_sum(self, a.data, l, nonzero, n_id)
             )
-        acc, c0_rot = self._rotate_sum_partial(
-            a.data[..., 0, :, :], self._hoisted_digits(a.data[..., 1, :, :], l),
-            l, nonzero,
-        )
-        return replace(
-            a, data=self._rotate_sum_finish(acc, c0_rot, a.data, l, n_id)
-        )
+        # the lifted digits are handed over, not held here: the partial
+        # frees them once it has gathered them into p5 order (peak memory)
+        with counters.span("rotate_sum.lift"):
+            lifted = [self._hoisted_digits(a.data[..., 1, :, :], l)]
+        with counters.span("rotate_sum.inner"):
+            acc, c0_rot = self._rotate_sum_partial(
+                a.data[..., 0, :, :], lifted.pop(), l, nonzero)
+        with counters.span("rotate_sum.mod_down"):
+            out = self._rotate_sum_finish(acc, c0_rot, a.data, l, n_id)
+        return replace(a, data=out)
 
     def _rotate_sum_partial(
         self, c0: torch.Tensor, dig: torch.Tensor, l: int,

@@ -90,6 +90,7 @@ from reference_seal_backend_tpu_torch.parallel import mesh as mesh_mod
 from reference_seal_backend_tpu_torch.parallel.mesh import ShardedTensor
 from reference_seal_backend_tpu_torch.schemes.core import Ciphertext
 from reference_seal_backend_tpu_torch.schemes.params import context_on
+from reference_seal_backend_tpu_torch.utils import counters
 
 
 def layout(x: ShardedTensor) -> Tuple[Optional[str], int]:
@@ -192,20 +193,24 @@ def rotate_sum(ev, data: ShardedTensor, level: int, nonzero: Sequence[int],
     identity steps: each block's share of the hoisted digits, one
     all-reduce of the summed accumulators, each block's mod-down."""
     axis, rows = layout(data)
-    coeff = inv(ev.ctx.plan, data[..., 1, :, :])
+    with counters.span("rotate_sum.lift"):
+        coeff = inv(ev.ctx.plan, data[..., 1, :, :])
     parts, c0s = _new_blocks(data), _new_blocks(data)
     for c in mesh_mod._coords(data.mesh):
         blk = data.blocks[c]
         evc, lo = on_device(ev, blk.device), _first_limb(data, axis, rows, c)
-        dig = evc._lift_digits(coeff.blocks[c], level, lo)
-        parts[c], c0s[c] = evc._rotate_sum_partial(
-            blk[..., 0, :, :], dig, level, nonzero, lo)
+        with counters.span("rotate_sum.lift"):
+            dig = evc._lift_digits(coeff.blocks[c], level, lo)
+        with counters.span("rotate_sum.inner"):
+            parts[c], c0s[c] = evc._rotate_sum_partial(
+                blk[..., 0, :, :], dig, level, nonzero, lo)
     full = _sum_partials(ev, parts, data, axis, level)
     out = _new_blocks(data)
     for c in mesh_mod._coords(data.mesh):
         blk = data.blocks[c]
         evc, lo = on_device(ev, blk.device), _first_limb(data, axis, rows, c)
-        out[c] = evc._rotate_sum_finish(full[c], c0s[c], blk, level, n_id, lo)
+        with counters.span("rotate_sum.mod_down"):
+            out[c] = evc._rotate_sum_finish(full[c], c0s[c], blk, level, n_id, lo)
     return ShardedTensor(out, data.mesh, data.spec)
 
 

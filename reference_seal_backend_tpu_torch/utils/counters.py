@@ -35,7 +35,16 @@ output; ``extra`` as the step's note says.  The steps:
   and ``behz.sk_bsk_q`` are noted beside it, without spans, as the work it
   does;
 * ``relinearize``: ``polys`` size-3 ciphertexts at level ``rows_in``,
-  ``extra`` = ``(special primes, key-switch digits)``.
+  ``extra`` = ``(special primes, key-switch digits)``;
+* ``rotate_sum``: one hoisted ``Evaluator.rotate_sum`` of ``polys``
+  ciphertexts at level ``rows_in``, noted once a call on the flat and the
+  limb path alike, ``extra`` = ``(rotations, identity steps, special
+  primes, key-switch digits)``.  It has no span of its own: its three
+  phases are spans (:func:`span`), ``rotate_sum.lift`` (the shared
+  inverse sweep, lift and forward sweeps), ``rotate_sum.inner`` (each
+  rotation's inner product and roll, and c0 rolled by each step) and
+  ``rotate_sum.mod_down`` (the one mod-down, its sum with the rolled c0s,
+  and the identity steps).
 
 Each span is a ``torch.profiler.record_function`` range named
 ``SPAN_PREFIX + step``: it names the step in a traced eager call
@@ -81,11 +90,17 @@ def note(name: str, *shape: int) -> None:
         sink[(name, *shape)] += 1
 
 
+def span(name: str):
+    """The block inside a profiler span ``SPAN_PREFIX + name``, noting
+    nothing."""
+    return torch.profiler.record_function(SPAN_PREFIX + name)
+
+
 @contextlib.contextmanager
 def step(name: str, *shape: int):
     """:func:`note`, and the block inside a profiler span of the step."""
     note(name, *shape)
-    with torch.profiler.record_function(SPAN_PREFIX + name):
+    with span(name):
         yield
 
 
